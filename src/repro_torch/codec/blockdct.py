@@ -1,0 +1,148 @@
+"""8x8 block DCT + quantisation, the JPEG/H.264 transform core (port of
+``repro.codec.blockdct``).
+
+``dct_quantize`` and ``dequant_idct`` are the codec's transform entries:
+they go through the ``blockdct`` kernel's wrappers, which launch the CUDA
+kernel on CUDA tensors and run the plain PyTorch version on CPU tensors.
+``dct2``/``idct2``/``quantize_with_table`` are the codec's plain pieces,
+kept for the parity tests and the oracle.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.blockdct import ops as blockdct_ops
+
+f32 = torch.float32
+
+# Standard JPEG luminance quantization table (quality 50).
+JPEG_LUMA_Q50 = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+], np.float32)
+
+
+def dct_matrix(n: int = 8, device=None):
+    """Orthonormal DCT-II matrix D (f32) such that y = D @ x @ D.T, built
+    in numpy exactly as the reference builds it.  Cached per device (one
+    host-to-device copy); callers must not modify it."""
+    return _dct_matrix(n, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache()
+def _dct_matrix(n: int, device: torch.device):
+    k = np.arange(n, dtype=np.float32)[:, None]
+    i = np.arange(n, dtype=np.float32)[None, :]
+    d = np.cos((2 * i + 1) * k * math.pi / (2 * n)) * math.sqrt(2.0 / n)
+    d[0] *= 1.0 / math.sqrt(2.0)
+    return torch.from_numpy(d).to(device)
+
+
+def quality_scale(quality):
+    """JPEG quality-factor -> quant-table scale (Annex K convention), f32."""
+    q = torch.as_tensor(quality, dtype=f32).clamp(1.0, 100.0)
+    return torch.where(q < 50.0, 5000.0 / q, 200.0 - 2.0 * q) / 100.0
+
+
+def quant_table(quality, device=None):
+    """The (8, 8) f32 quantization table for a quality factor."""
+    qtab = torch.from_numpy(JPEG_LUMA_Q50) * quality_scale(quality)
+    return qtab.clamp(min=1.0).to(device)
+
+
+def blockify(img, block: int = 8):
+    """(..., H, W) -> (..., H/b * W/b, b, b).  H, W multiples of b."""
+    *lead, H, W = img.shape
+    x = img.reshape(*lead, H // block, block, W // block, block)
+    return x.transpose(-3, -2).reshape(*lead, -1, block, block)
+
+
+def unblockify(blocks, H: int, W: int, block: int = 8):
+    """(..., nb, b, b) -> (..., H, W)."""
+    lead = blocks.shape[:-3]
+    x = blocks.reshape(*lead, H // block, W // block, block, block)
+    return x.transpose(-3, -2).reshape(*lead, H, W)
+
+
+def dct2(blocks):
+    D = dct_matrix(blocks.shape[-1], blocks.device)
+    return D @ blocks.to(f32) @ D.T
+
+
+def idct2(coefs):
+    D = dct_matrix(coefs.shape[-1], coefs.device)
+    return D.T @ coefs.to(f32) @ D
+
+
+def quantize_with_table(coefs, qtab):
+    return torch.round(coefs / qtab)
+
+
+def dequantize(qcoefs, qtab):
+    return qcoefs * qtab
+
+
+def dct_quantize(blocks, qtab):
+    """(..., nb, 8, 8) -> (q, rec): quantised DCT coefficients and the
+    dequantised inverse transform, in ONE blockdct launch for all the
+    blocks of every leading index."""
+    shape = blocks.shape
+    q, rec = blockdct_ops.forward_quant(
+        blocks.reshape(-1, 8, 8).contiguous(),
+        dct_matrix(8, blocks.device), qtab)
+    return q.reshape(shape), rec.reshape(shape)
+
+
+def dequant_idct(q, qtab):
+    """(..., nb, 8, 8) quantised coefficients -> pixel-domain blocks, in
+    ONE blockdct inverse launch."""
+    rec = blockdct_ops.inverse(q.reshape(-1, 8, 8).contiguous(),
+                               dct_matrix(8, q.device), qtab)
+    return rec.reshape(q.shape)
+
+
+def seq_sum(v, dims: int | None = None):
+    """Sum over the trailing ``dims`` axes (default: all of a 1-D vector
+    or 2-D grid): a 2-D grid sums its rows, then the row totals.
+
+    The reference scans strictly left to right so that the masked
+    mixed-ladder encode is bit-exact against the unpadded one; the single
+    stream path that the port runs does not depend on that order."""
+    dims = v.dim() if dims is None else dims
+    if dims == 2:
+        return v.to(f32).sum(-1).sum(-1)
+    return v.to(f32).sum(-1)
+
+
+def entropy_bits(qcoefs, grid=None):
+    """Bit-cost proxy: 2*log2(1+|q|)+1 per nonzero coefficient plus 4 bits
+    per block.  qcoefs: (..., nb, 8, 8) -> (...); ``grid`` is the frame's
+    (block_rows, block_cols) 8x8 block grid."""
+    a = qcoefs.abs()
+    bits = torch.where(a > 0, 2.0 * torch.log2(1.0 + a) + 1.0, 0.0)
+    per_block = bits.sum(dim=(-2, -1))
+    overhead = qcoefs.shape[-3] * 4.0
+    if grid is not None:
+        per_block = per_block.reshape(*per_block.shape[:-1], *grid)
+        return seq_sum(per_block, 2) + overhead
+    return seq_sum(per_block, 1) + overhead
+
+
+def transform_quantize(img, quality):
+    """JPEG round trip of (H, W) or (T, H, W) frames, all blocks in one
+    blockdct launch.  Returns (recon, bits) with bits () or (T,)."""
+    H, W = img.shape[-2:]
+    blocks = blockify(img.to(f32) - 128.0)
+    q, rec = dct_quantize(blocks, quant_table(quality, img.device))
+    bits = entropy_bits(q, grid=(H // 8, W // 8))
+    return (unblockify(rec, H, W) + 128.0).clamp(0.0, 255.0), bits

@@ -1,0 +1,29 @@
+"""Device selection for the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless ``device`` says
+    otherwise.
+
+    ``None`` means CUDA and raises ``RuntimeError`` when CUDA is absent:
+    there is no silent fall back to the CPU.  The CPU is used only when
+    the caller asks for it (``device="cpu"``, as the parity tests do).
+
+    Also pins full-f32 matmuls and convolutions
+    (``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    ``torch.backends.cudnn.allow_tf32 = False``): the JAX reference
+    computes the detector's convolutions in full f32, while cuDNN uses
+    TF32 for f32 convolutions by default, which keeps about three decimal
+    digits and would break parity.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port's "
+            "plain PyTorch path on the CPU")
+    return dev

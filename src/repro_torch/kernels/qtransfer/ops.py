@@ -1,0 +1,106 @@
+"""Macroblock gather at motion vectors (+ residual add and clip): the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Port of ``repro/kernels/qtransfer``.  The kernel is
+``kernels/csrc/qtransfer.cu``; ``qtransfer_plain`` is the same function in
+PyTorch, taken for CPU tensors and used as the kernel's reference on the
+card.  Two edge modes, which differ at the borders and must not be
+swapped:
+
+* ``edge="pixel"`` reproduces ``repro.codec.motion.warp_blocks`` (the
+  main path): each pixel is edge-replicated on both axes, and a block
+  start beyond the 16-px pad behaves as ``lax.dynamic_slice`` makes it
+  (a negative start counts from the end, then clamps), for any |mv|.
+* ``edge="block"`` reproduces ``repro.kernels.qtransfer.ref.qtransfer_ref``:
+  dy clamped to +-``radius``, the block's x start clamped to [0, W-16].
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+MB = 16
+EDGES = ("pixel", "block")
+
+
+def _padded_start(s, n: int):
+    """``lax.dynamic_slice``'s start of a 16-wide slice of an (n + 32)-long
+    edge-padded axis: a negative start counts from the end (Python-style),
+    then the start is clamped to [0, n + 16]."""
+    return torch.where(s < 0, s + n + 2 * MB, s).clamp(0, n + MB)
+
+
+def _source_index(mv, H: int, W: int, edge: str, radius: int):
+    """(B, H, W) flat source index into each (H, W) frame."""
+    dev = mv.device
+    y = torch.arange(H, device=dev)
+    x = torch.arange(W, device=dev)
+    by, i = (y // MB)[:, None], (y % MB)[:, None]
+    bx, j = (x // MB)[None, :], (x % MB)[None, :]
+    m = mv.long()
+    dy = m[:, :, :, 0][:, y // MB][:, :, x // MB]
+    dx = m[:, :, :, 1][:, y // MB][:, :, x // MB]
+    if edge == "pixel":
+        start_y = _padded_start(by * MB + MB + dy, H)
+        start_x = _padded_start(bx * MB + MB + dx, W)
+        sy = (start_y - MB + i).clamp(0, H - 1)
+        sx = (start_x - MB + j).clamp(0, W - 1)
+    else:
+        sy = (by * MB + dy.clamp(-radius, radius) + i).clamp(0, H - 1)
+        sx = (bx * MB + dx).clamp(0, W - MB) + j
+    return sy * W + sx
+
+
+def qtransfer_plain(anchor, mv, resid=None, *, edge: str = "pixel",
+                    radius: int = 16):
+    """anchor (B, H, W), mv (B, H/16, W/16, 2) int32, resid (B, H, W) or
+    None -> (B, H, W): the gathered blocks, plus ``resid`` and clipped to
+    [0, 255] when a residual is given."""
+    B, H, W = anchor.shape
+    idx = _source_index(mv, H, W, edge, radius)
+    out = anchor.reshape(B, H * W).gather(1, idx.reshape(B, H * W))
+    out = out.reshape(B, H, W)
+    if resid is not None:
+        out = (out + resid).clamp(0.0, 255.0)
+    return out
+
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, _P, _P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, _P, _P]
+
+
+def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
+              radius: int = 16):
+    """Batched gather as :func:`qtransfer_plain`.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if edge not in EDGES:
+        raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
+    if anchor.dim() != 3 or anchor.shape[1] % MB or anchor.shape[2] % MB:
+        raise ValueError(f"anchor must be (B, H, W) with H, W multiples of "
+                         f"{MB}, got {tuple(anchor.shape)}")
+    B, H, W = anchor.shape
+    if mv.shape != (B, H // MB, W // MB, 2):
+        raise ValueError(f"mv must be {(B, H // MB, W // MB, 2)}, "
+                         f"got {tuple(mv.shape)}")
+    if resid is not None and resid.shape != anchor.shape:
+        raise ValueError(f"resid must be {tuple(anchor.shape)}, "
+                         f"got {tuple(resid.shape)}")
+    if anchor.device.type == "cpu":
+        return qtransfer_plain(anchor, mv, resid, edge=edge, radius=radius)
+    if anchor.device.type != "cuda":
+        raise ValueError(f"qtransfer runs on cpu or cuda, not {anchor.device}")
+    build.check_cuda_tensor("anchor", anchor, torch.float32, anchor.device)
+    build.check_cuda_tensor("mv", mv, torch.int32, anchor.device)
+    if resid is not None:
+        build.check_cuda_tensor("resid", resid, torch.float32, anchor.device)
+    out = torch.empty_like(anchor)
+    fn = build.kernel_function("qtransfer", "qtransfer_launch", _ARGTYPES)
+    build.launch("qtransfer", fn, build.ptr(anchor), build.ptr(mv),
+                 None if resid is None else build.ptr(resid), B, H, W,
+                 EDGES.index(edge), radius, build.ptr(out),
+                 build.stream_ptr(anchor.device))
+    return out

@@ -1,0 +1,146 @@
+"""Anchor-free TinyDetector + box decoding + F1 metric (port of
+``repro.models.detection``: the inference half).
+
+Parameters are a plain dict of tensors in PyTorch's layout: ``conv{i}``
+(c, cin, 3, 3) OIHW with ``bias{i}`` (c,), ``head`` (5, cin, 1, 1) with
+``head_b`` (5,).  ``forward`` keeps the reference's NHWC output layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+
+f32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyDetectorConfig:
+    channels: tuple[int, ...] = (16, 32, 64)
+    stride: int = 8               # output cell size in px
+    dtype: str = "float32"
+
+
+def param_specs(cfg: TinyDetectorConfig) -> dict:
+    """Parameter shapes in the port's (OIHW) layout, in the reference's
+    declaration order."""
+    p = {}
+    cin = 1
+    for i, c in enumerate(cfg.channels):
+        p[f"conv{i}"] = (c, cin, 3, 3)
+        p[f"bias{i}"] = (c,)
+        cin = c
+    p["head"] = (5, cin, 1, 1)
+    p["head_b"] = (5,)
+    return p
+
+
+def init(generator: torch.Generator, cfg: TinyDetectorConfig, *,
+         device=None) -> dict:
+    """Random parameters by the reference's rule (``repro/models/params.py``
+    ``fan_in``): weights ~ N(0, 1/cin), the input-channel count being the
+    reference's fan-in; biases zero.  Drawn on the CPU from ``generator``,
+    then moved to the resolved device."""
+    dev = resolve_device(device)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: only float32 is "
+                                  "ported")
+    params = {}
+    for name, shape in param_specs(cfg).items():
+        if len(shape) == 1:
+            params[name] = torch.zeros(shape, dtype=f32)
+        else:
+            params[name] = torch.randn(shape, generator=generator,
+                                       dtype=f32) / math.sqrt(shape[1])
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's padding="SAME": (low, high), the extra pixel going high (a
+    3x3 stride-2 conv on an even input pads (0, 1), not (1, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def forward(params: dict, cfg: TinyDetectorConfig, frames):
+    """frames: (B, H, W) [0..255] -> (B, H/s, W/s, 5) raw head output.
+
+    Channels: [objectness logit, dy, dx, log h, log w].
+    """
+    x = (frames.to(f32) / 255.0 - 0.5)[:, None]
+    n_down = {2: 1, 4: 2, 8: 3}[cfg.stride]
+    for i in range(len(cfg.channels)):
+        stride = 2 if i < n_down else 1
+        ph = _same_pad(x.shape[2], 3, stride)
+        pw = _same_pad(x.shape[3], 3, stride)
+        x = F.pad(x, (*pw, *ph))
+        x = F.relu(F.conv2d(x, params[f"conv{i}"], params[f"bias{i}"],
+                            stride=stride))
+    x = F.conv2d(x, params["head"], params["head_b"])
+    return x.permute(0, 2, 3, 1)
+
+
+def decode_boxes(raw, cfg: TinyDetectorConfig):
+    """-> (boxes (B, Nc, 4) cxcywh px, scores (B, Nc)).  Nc = all cells."""
+    B, hc, wc, _ = raw.shape
+    s = cfg.stride
+    dev = raw.device
+    obj = torch.sigmoid(raw[..., 0])
+    cy = (torch.arange(hc, dtype=f32, device=dev)[None, :, None] + 0.5
+          + torch.tanh(raw[..., 1])) * s
+    cx = (torch.arange(wc, dtype=f32, device=dev)[None, None, :] + 0.5
+          + torch.tanh(raw[..., 2])) * s
+    h = torch.exp(raw[..., 3].clamp(-3, 3)) * s
+    w = torch.exp(raw[..., 4].clamp(-3, 3)) * s
+    boxes = torch.stack([cy, cx, h, w], dim=-1)
+    return boxes.reshape(B, -1, 4), obj.reshape(B, -1)
+
+
+def iou_cxcywh(a, b):
+    """a: (..., 4), b: (..., 4) -> IoU."""
+    ay0, ay1 = a[..., 0] - a[..., 2] / 2, a[..., 0] + a[..., 2] / 2
+    ax0, ax1 = a[..., 1] - a[..., 3] / 2, a[..., 1] + a[..., 3] / 2
+    by0, by1 = b[..., 0] - b[..., 2] / 2, b[..., 0] + b[..., 2] / 2
+    bx0, bx1 = b[..., 1] - b[..., 3] / 2, b[..., 1] + b[..., 3] / 2
+    iy = (torch.minimum(ay1, by1) - torch.maximum(ay0, by0)).clamp(min=0)
+    ix = (torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0)).clamp(min=0)
+    inter = iy * ix
+    union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
+    return inter / union.clamp(min=1e-9)
+
+
+def f1_score(pred_boxes, pred_scores, gt_boxes, gt_valid,
+             iou_thresh: float = 0.5, score_thresh: float = 0.5):
+    """Greedy-matching F1@IoU per frame.  pred_boxes (B, P, 4),
+    pred_scores (B, P), gt_boxes (B, G, 4), gt_valid (B, G) -> (B,).
+
+    min(P, G) rounds: each takes the highest remaining IoU (first index on
+    ties, as jnp.argmax), counts a hit when it reaches ``iou_thresh``, and
+    then clears that prediction's row and that GT's column."""
+    conf = pred_scores > score_thresh
+    valid = gt_valid.to(f32)
+    iou = iou_cxcywh(pred_boxes[:, :, None], gt_boxes[:, None])   # (B, P, G)
+    iou = iou * conf[:, :, None] * valid[:, None, :]
+    B, P, G = iou.shape
+    rows = torch.arange(B, device=iou.device)
+    tp = torch.zeros(B, dtype=f32, device=iou.device)
+    for _ in range(min(P, G)):
+        flat = iou.reshape(B, -1).argmax(dim=1)
+        pi, gi = flat // G, flat % G
+        hit = iou[rows, pi, gi] >= iou_thresh
+        keep_row = (torch.arange(P, device=iou.device)[None] != pi[:, None])
+        keep_col = (torch.arange(G, device=iou.device)[None] != gi[:, None])
+        cleared = iou * keep_row[:, :, None] * keep_col[:, None, :]
+        iou = torch.where(hit[:, None, None], cleared, iou)
+        tp = tp + hit.to(f32)
+    n_pred = conf.sum(1).to(f32)
+    n_gt = valid.sum(1)
+    prec = tp / n_pred.clamp(min=1e-9)
+    rec = tp / n_gt.clamp(min=1e-9)
+    f1 = 2 * prec * rec / (prec + rec).clamp(min=1e-9)
+    return torch.where(n_gt > 0, f1, torch.where(n_pred > 0, 0.0, 1.0))

@@ -2,23 +2,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
+    python3 chip_smoke.py --profile main|roi   (phase 5's profile alone)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. card: name and power limit from nvidia-smi;
 2. build: compiles the port's CUDA kernels (``src/repro_torch/kernels/csrc``)
    with nvcc, one process per source;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with its time, the plain version's time and
-   its bound (CUDA events, median of 20 timed runs after warm-up);
+3. kernels: each kernel form (motion_sad exhaustive/diamond x f32/bf16,
+   blockdct forward and inverse, qtransfer f32 and bf16, roi_gather)
+   against its plain PyTorch version on the card, at its path's shapes,
+   with its time, the plain version's time and its bound (CUDA events,
+   median of 20 timed runs after warm-up);
 4. main path: ``roundtrip_chunk`` on 720x1280 sources, 30-frame chunks,
    ladder rung 2 (LR 352x640), full-width TinyDetector from the port's
    ``init``: 2 streams x 3 consecutive chunks.  Launch counters show the
-   path went through every kernel, and a 64x96 chunk on the card is
-   held against the port's plain CPU path;
-5. profile: one more chunk under torch.profiler (device busy share and
-   time by kernel);
-6. one JSON line listing the kernels; 7. the JSON result line.
+   path went through every kernel;
+5. roi: the same chunks through the ROI-gated round trip with the
+   diamond bf16 search (80-px regions, the top 36 of 144), in turns with
+   the main path's, with its launch counts; then one more chunk of each
+   path under torch.profiler, each in a process of its own (device busy
+   share, device time by kernel, host time by operator), and the
+   admit-all gate against the ungated path;
+6. parity: 64x96 chunks through the kernels on the card, every codec
+   variant with and without the gate, held against the port's plain
+   CPU path;
+7. one JSON line listing the kernels; 8. the JSON result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -39,7 +48,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # outside the tensor cores.  TF32 is off in the port.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-F32 = 4
+F32, BF16 = 4, 2
 
 H_HD, W_HD, T = 720, 1280, 30          # one second of 720p at 30 fps
 LEVEL = 2                              # ladder rung 2: LR 352x640
@@ -48,6 +57,11 @@ RADIUS = 8
 # pipelines (the sparse stream) and anchors at every other frame (the
 # dense one)
 TR1, TR2 = 0.06, 0.015
+# the ROI path's gate: 9x16 regions of 80 px, patches of 96 px (halo 8 >=
+# the detector's receptive field 7), the top quarter of the regions
+ROI = dict(region_px=80, halo=8, capacity=36, threshold=0.0)
+ROI_CODEC = dict(search="diamond", dtype="bfloat16")
+SOURCE = "src/repro_torch/kernels/csrc/"
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -109,10 +123,15 @@ def _sad_f64(cur, ref, by, bx, dy, dx, radius):
     return float(np.abs(c - ref[np.ix_(ys, xs)].astype(np.float64)).sum())
 
 
-def check_motion_sad(g) -> dict:
+def check_motion_sad(g) -> list[dict]:
+    """Each form of the search against its plain version at the main
+    path's LR shape: MVs and SADs exact on integer frames; on float frames
+    a differing MV must have the plain pick's SAD in f64."""
     import torch
-    from repro_torch.kernels.motion_sad.ops import motion_sad, \
-        motion_sad_plain
+    from repro_torch.codec.motion import diamond_num_evals
+    from repro_torch.kernels.motion_sad.ops import (launch_name, motion_sad,
+                                                    motion_sad_diamond_plain,
+                                                    motion_sad_plain)
     h, w = 352, 640
     dev = torch.device("cuda")
     base = torch.rand((h + 32, w + 32), generator=g, device=dev) * 255
@@ -121,52 +140,74 @@ def check_motion_sad(g) -> dict:
     ref_f = base[16:16 + h, 16:16 + w].contiguous()
     cur_f = (base[13:13 + h, 18:18 + w]
              + torch.randn((h, w), generator=g, device=dev) * 3).contiguous()
-    cases["integer"] = (cur_f.round(), ref_f.round())
+    # 8-bit integers, which bf16 holds exactly
+    cases["integer"] = (cur_f.round().clamp(0, 255), ref_f.round())
     cases["float"] = (cur_f, ref_f)
-    max_err = 0.0
-    for label, (cur, ref) in cases.items():
-        mv, sad = motion_sad(cur, ref, RADIUS)
-        mv_p, sad_p = motion_sad_plain(cur, ref, RADIUS)
-        torch.cuda.synchronize()
-        diff = (mv != mv_p).any(-1)
-        n_diff = int(diff.sum())
-        if label == "integer":
-            if n_diff or not torch.equal(sad, sad_p):
-                raise AssertionError(
-                    f"motion_sad integer input: {n_diff} MVs differ, max "
-                    f"|dsad| {float((sad - sad_p).abs().max())}")
-        else:
-            c, r = cur.cpu().numpy(), ref.cpu().numpy()
-            for by, bx in diff.nonzero().tolist():
-                a = _sad_f64(c, r, by, bx, *mv[by, bx].tolist(), RADIUS)
-                b = _sad_f64(c, r, by, bx, *mv_p[by, bx].tolist(), RADIUS)
-                if abs(a - b) > 1e-5 * max(abs(a), abs(b)):
-                    raise AssertionError(
-                        f"motion_sad float input: block ({by},{bx}) picked "
-                        f"{mv[by, bx].tolist()} (f64 SAD {a}) where the plain "
-                        f"version picked {mv_p[by, bx].tolist()} ({b})")
-            same = ~diff
-            rel = ((sad - sad_p).abs()[same]
-                   / sad_p.abs()[same].clamp(min=1e-6)).max()
-            if float(rel) > 1e-5:
-                raise AssertionError(f"motion_sad float SAD rel err {rel}")
-        err = float((sad - sad_p).abs()[~diff].max())
-        max_err = max(max_err, err)
-        print(f"[kernels] motion_sad {label:7s} {h}x{w} R={RADIUS}: "
-              f"{n_diff} MVs differ, max |dsad| (same MV) {err:.3g}")
-    cur, ref = cases["float"]
-    ms = cuda_ms(lambda: motion_sad(cur, ref, RADIUS))
-    plain = cuda_ms(lambda: motion_sad_plain(cur, ref, RADIUS), reps=5,
-                    inner=1, warmup=1)
     nb = (h // 16) * (w // 16)
-    cands = (2 * RADIUS + 1) ** 2
-    b, by = bound_ms(2 * h * w * F32 + nb * 3 * F32, nb * cands * 256 * 2)
-    return dict(name="motion_sad", mode="exhaustive f32",
-                route="cuda", source="src/repro_torch/kernels/csrc/motion_sad.cu",
-                replaces="src/repro/kernels/motion_sad/kernel.py:159",
-                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None,
-                shape=f"{h}x{w} R={RADIUS}")
+    out, integer_f32 = [], {}
+    for search, dtype, line in (
+            ("exhaustive", None, 159), ("exhaustive", torch.bfloat16, 159),
+            ("diamond", None, 131), ("diamond", torch.bfloat16, 131)):
+        name = launch_name(search, dtype)
+        plain = motion_sad_diamond_plain if search == "diamond" \
+            else motion_sad_plain
+        max_err = 0.0
+        for label, (cur, ref) in cases.items():
+            mv, sad = motion_sad(cur, ref, RADIUS, dtype=dtype, search=search)
+            mv_p, sad_p = plain(cur, ref, RADIUS, dtype=dtype)
+            torch.cuda.synchronize()
+            diff = (mv != mv_p).any(-1)
+            n_diff = int(diff.sum())
+            if label == "integer":
+                if n_diff or not torch.equal(sad, sad_p):
+                    raise AssertionError(
+                        f"{name} integer input: {n_diff} MVs differ, max "
+                        f"|dsad| {float((sad - sad_p).abs().max())}")
+                # bf16 holds 8-bit integers exactly: it must equal f32
+                if dtype is None:
+                    integer_f32[search] = (mv, sad)
+                elif not (torch.equal(mv, integer_f32[search][0])
+                          and torch.equal(sad, integer_f32[search][1])):
+                    raise AssertionError(f"{name} differs from its f32 form "
+                                         "on 8-bit integer frames")
+            else:
+                store = dtype or torch.float32
+                c, r = (x.to(store).float().cpu().numpy() for x in (cur, ref))
+                for by, bx in diff.nonzero().tolist():
+                    a = _sad_f64(c, r, by, bx, *mv[by, bx].tolist(), RADIUS)
+                    b = _sad_f64(c, r, by, bx, *mv_p[by, bx].tolist(), RADIUS)
+                    if abs(a - b) > 1e-5 * max(abs(a), abs(b)):
+                        raise AssertionError(
+                            f"{name} float input: block ({by},{bx}) picked "
+                            f"{mv[by, bx].tolist()} (f64 SAD {a}) where the "
+                            f"plain version picked {mv_p[by, bx].tolist()} "
+                            f"({b})")
+                same = ~diff
+                rel = ((sad - sad_p).abs()[same]
+                       / sad_p.abs()[same].clamp(min=1e-6)).max()
+                if float(rel) > 1e-5:
+                    raise AssertionError(f"{name} float SAD rel err {rel}")
+            err = float((sad - sad_p).abs()[~diff].max())
+            max_err = max(max_err, err)
+            print(f"[kernels] {name} {label:7s} {h}x{w} R={RADIUS}: "
+                  f"{n_diff} MVs differ, max |dsad| (same MV) {err:.3g}")
+        cur, ref = (x.to(dtype or torch.float32) for x in cases["float"])
+        ms = cuda_ms(lambda: motion_sad(cur, ref, RADIUS, dtype=dtype,
+                                        search=search))
+        plain_ms = cuda_ms(lambda: plain(cur, ref, RADIUS, dtype=dtype),
+                           reps=5, inner=1, warmup=1)
+        evals = (2 * RADIUS + 1) ** 2 if search == "exhaustive" \
+            else diamond_num_evals(RADIUS)
+        item = BF16 if dtype is not None else F32
+        b, by = bound_ms(2 * h * w * item + nb * 3 * F32,
+                         nb * evals * 256 * 2)
+        out.append(dict(
+            name=name, mode=f"{search} {'bf16' if dtype else 'f32'}",
+            route="cuda", source=SOURCE + "motion_sad.cu",
+            replaces=f"src/repro/kernels/motion_sad/kernel.py:{line}",
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, shape=f"{h}x{w} R={RADIUS}"))
+    return out
 
 
 def check_blockdct(g) -> list[dict]:
@@ -213,7 +254,7 @@ def check_blockdct(g) -> list[dict]:
     inv_ms = cuda_ms(lambda: ops.inverse(q_inv, D, qt))
     inv_plain = cuda_ms(lambda: ops.inverse_plain(q_inv, D, qt))
     b_i, by_i = bound_ms(2 * nb_inv * 64 * F32, nb_inv * 2 * 8 * 8 * 8 * 2)
-    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/blockdct.cu",
+    common = dict(route="cuda", source=SOURCE + "blockdct.cu",
                   replaces="src/repro/kernels/blockdct/kernel.py:41",
                   library_ms=None)
     return [dict(name="blockdct_forward", mode="forward_quant",
@@ -225,7 +266,7 @@ def check_blockdct(g) -> list[dict]:
                  **common)]
 
 
-def check_qtransfer(g) -> dict:
+def check_qtransfer(g) -> list[dict]:
     import torch
     from repro_torch.kernels.qtransfer.ops import qtransfer, qtransfer_plain
     dev = torch.device("cuda")
@@ -251,12 +292,84 @@ def check_qtransfer(g) -> dict:
     plain = cuda_ms(lambda: qtransfer_plain(anchor, mv, resid, edge="pixel"))
     n = math.prod(shape)
     b, by = bound_ms(3 * n * F32 + mv.numel() * 4, 2 * n)
-    return dict(name="qtransfer", mode="pixel (main path) and block",
-                route="cuda", source="src/repro_torch/kernels/csrc/qtransfer.cu",
-                replaces="src/repro/kernels/qtransfer/kernel.py:50",
+    common = dict(route="cuda", source=SOURCE + "qtransfer.cu",
+                  replaces="src/repro/kernels/qtransfer/kernel.py:50",
+                  library_ms=None)
+    out = [dict(name="qtransfer", mode="pixel (main path) and block",
                 max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None,
-                shape="x".join(map(str, shape)) + " pixel+resid")
+                bound_by=by, shape="x".join(map(str, shape)) + " pixel+resid",
+                **common)]
+
+    # bf16 storage, block mode: gather and add in f32, one rounding
+    bf = torch.bfloat16
+    a16, r16 = anchor.to(bf), resid.to(bf)
+    o16 = qtransfer(a16, mv, r16, edge="block", dtype=bf)
+    p16 = qtransfer_plain(a16, mv, r16, edge="block", dtype=bf)
+    torch.cuda.synchronize()
+    if o16.dtype != bf or not torch.equal(o16, p16):
+        raise AssertionError("qtransfer bf16 block mode is not exact")
+    print(f"[kernels] qtransfer_bf16 edge=block gather+resid+clip "
+          f"{'x'.join(map(str, shape))} |mv|<=24: exact")
+    ms16 = cuda_ms(lambda: qtransfer(a16, mv, r16, edge="block", dtype=bf))
+    plain16 = cuda_ms(lambda: qtransfer_plain(a16, mv, r16, edge="block",
+                                              dtype=bf))
+    b16, by16 = bound_ms(3 * n * BF16 + mv.numel() * 4, 2 * n)
+    out.append(dict(name="qtransfer_bf16", mode="block, bf16 storage",
+                    max_abs_err=0.0, ms=ms16, plain_ms=plain16, bound_ms=b16,
+                    bound_by=by16,
+                    shape="x".join(map(str, shape)) + " block+resid",
+                    **common))
+    return out
+
+
+def check_roi_gather(g) -> dict:
+    """The ROI path's gather: T=30 halo-padded 720x1280 planes, K=36 lanes
+    of 96x96 patches; exact.  ``library_ms`` times the one PyTorch call
+    the plain version is built on: advanced indexing of an ``unfold``
+    view of every (P, P) window."""
+    import torch
+    from repro_torch.kernels.roi_gather.ops import roi_gather, \
+        roi_gather_plain
+    dev = torch.device("cuda")
+    rp, halo, K = ROI["region_px"], ROI["halo"], ROI["capacity"]
+    P = rp + 2 * halo
+    planes = torch.rand((T, H_HD + 2 * halo, W_HD + 2 * halo), generator=g,
+                        device=dev) - 0.5
+    # K distinct regions a frame, as roi_select gives them
+    nx = W_HD // rp
+    idx = torch.rand((T, (H_HD // rp) * nx), generator=g,
+                     device=dev).argsort(dim=1)[:, :K]
+    ry, rx = (idx // nx).int(), (idx % nx).int()
+    out = roi_gather(planes, ry, rx, region_px=rp, halo=halo)
+    ref = roi_gather_plain(planes, ry, rx, region_px=rp, halo=halo)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("roi_gather is not exact")
+    # the least the gather reads: the union of its lanes' source windows
+    # (neighbouring patches share their halo strips)
+    ar = torch.arange(P, device=dev)
+    read = torch.zeros_like(planes, dtype=torch.bool)
+    read[torch.arange(T, device=dev)[:, None, None, None],
+         (ry.long() * rp)[..., None, None] + ar[:, None],
+         (rx.long() * rp)[..., None, None] + ar] = True
+    read_bytes = int(read.sum()) * F32
+    print(f"[kernels] roi_gather T={T} K={K} P={P} on {T}x{H_HD + 2 * halo}x"
+          f"{W_HD + 2 * halo} planes: exact; reads {read_bytes / 1e6:.2f} MB "
+          f"(distinct source bytes), writes {out.numel() * F32 / 1e6:.2f} MB")
+    ms = cuda_ms(lambda: roi_gather(planes, ry, rx, region_px=rp, halo=halo))
+    plain = cuda_ms(lambda: roi_gather_plain(planes, ry, rx, region_px=rp,
+                                             halo=halo))
+    windows = planes.unfold(1, P, 1).unfold(2, P, 1)
+    t = torch.arange(T, device=dev)[:, None]
+    ys, xs = ry.long() * rp, rx.long() * rp
+    library = cuda_ms(lambda: windows[t, ys, xs])
+    b, by = bound_ms(read_bytes + out.numel() * F32 + 2 * ry.numel() * 4, 0)
+    return dict(name="roi_gather", mode="f32", route="cuda",
+                source=SOURCE + "roi_gather.cu",
+                replaces="src/repro/kernels/roi_gather/kernel.py:40",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=library,
+                shape=f"T={T} K={K} P={P}")
 
 
 def _streams():
@@ -272,71 +385,123 @@ def _streams():
                          max_size=int(16 * k), speed=3.0 * k, seed=201)]
 
 
-def phase_main_path(params, det_cfg) -> tuple[dict, list]:
+def path_configs(det_cfg) -> dict:
+    """The paths this script drives: tag -> (RoundtripConfig, the launches
+    each chunk must make of each kernel form; 0 for a form not named)."""
+    from repro_torch.codec.video_codec import VideoCodecConfig
+    from repro_torch.core.roi import RoiConfig
+    from repro_torch.core.roundtrip import RoundtripConfig
+    return {
+        "main": (RoundtripConfig(level=LEVEL, det_cfg=det_cfg),
+                 {"motion_sad": T - 1, "blockdct_forward": T + 1,
+                  "blockdct_inverse": 1, "qtransfer": T}),
+        "roi": (RoundtripConfig(level=LEVEL, det_cfg=det_cfg,
+                                codec=VideoCodecConfig(**ROI_CODEC),
+                                roi=RoiConfig(**ROI)),
+                {"motion_sad_diamond_bf16": T - 1, "roi_gather": 1,
+                 "blockdct_forward": T + 1, "blockdct_inverse": 1,
+                 "qtransfer": T})}
+
+
+def run_paths(params, paths: dict) -> dict:
+    """2 streams x 3 consecutive chunks through ``roundtrip_chunk`` on
+    every path, the paths in turns chunk by chunk so that they share the
+    host's state: per-chunk time, frames/s and pipeline mix.  The launch
+    counts are set to 0 just before each chunk and read just after it;
+    each path must make its expected launches per chunk.  Returns each
+    path's launch counts, summed over its chunks."""
+    import collections
     import torch
-    from repro_torch.core.roundtrip import RoundtripConfig, roundtrip_chunk
+    from repro_torch.core.roundtrip import roundtrip_chunk
     from repro_torch.kernels import build
     from repro_torch.sim.video_source import generate_chunk
-    cfg = RoundtripConfig(level=LEVEL, det_cfg=det_cfg)
     inputs = [[generate_chunk(sc, c * T, T) for c in range(3)]
               for sc in _streams()]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    chunk_ms = []
-    build.reset_launches()
+    chunk_ms = {tag: [] for tag in paths}
+    launches = {tag: collections.Counter() for tag in paths}
+    peak = dict.fromkeys(paths, 0)
+    mallocs = dict.fromkeys(paths, 0)     # cudaMalloc calls, steady chunks
     for s, chunks in enumerate(inputs):
         for c, (raw, gtb, gtv) in enumerate(chunks):
-            t0 = time.perf_counter()
-            out = roundtrip_chunk(raw, gtb, gtv, params, tr1=TR1, tr2=TR2,
-                                  bw_kbps=6000.0, cfg=cfg)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) * 1e3
-            chunk_ms.append(dt)
-            types = out["types"]
-            for k, v in out.items():
-                if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-                    raise AssertionError(f"stream {s} chunk {c}: {k} is not "
-                                         "finite")
-            if int(types[0]) != 1 or out["boxes"].shape != (
-                    T, (H_HD // 8) * (W_HD // 8), 4):
-                raise AssertionError(f"stream {s} chunk {c}: bad output "
-                                     f"(types[0]={int(types[0])}, boxes "
-                                     f"{tuple(out['boxes'].shape)})")
-            mix = [int((types == k).sum()) for k in (1, 2, 3)]
-            print(f"[main] stream {s} chunk {c}: {dt:.1f} ms "
-                  f"({T / dt * 1e3:.1f} frames/s), pipelines {mix}, "
-                  f"mean_f1 {float(out['mean_f1']):.4f}, bits "
-                  f"{float(out['total_bits']):.0f}, latency "
-                  f"{float(out['latency']):.4f} s")
-    launches = dict(build.LAUNCHES)
-    n_chunks = len(chunk_ms)
-    per_chunk = {"motion_sad": T - 1, "blockdct_forward": T + 1,
-                 "blockdct_inverse": 1, "qtransfer": T}
-    print(f"[main] launches over {n_chunks} chunks: {launches}; per chunk: "
-          f"{ {k: v / n_chunks for k, v in launches.items()} }")
-    for name, n in per_chunk.items():
-        if launches.get(name, 0) != n * n_chunks:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches, "
-                                 f"expected {n} per chunk x {n_chunks}")
-    steady = statistics.median(chunk_ms[1:])
-    print(f"[main] {n_chunks} chunks of {T}x{H_HD}x{W_HD}: first "
-          f"{chunk_ms[0]:.1f} ms, median of the rest {steady:.1f} ms "
-          f"({T / steady * 1e3:.1f} frames/s), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, chunk_ms
+            for tag, (cfg, per_chunk) in paths.items():
+                torch.cuda.reset_peak_memory_stats()
+                n_alloc = torch.cuda.memory_stats().get("num_device_alloc", 0)
+                build.reset_launches()
+                t0 = time.perf_counter()
+                out = roundtrip_chunk(raw, gtb, gtv, params, tr1=TR1,
+                                      tr2=TR2, bw_kbps=6000.0, cfg=cfg)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                got = dict(build.LAUNCHES)
+                if s or c:
+                    mallocs[tag] += torch.cuda.memory_stats().get(
+                        "num_device_alloc", 0) - n_alloc
+                peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
+                chunk_ms[tag].append(dt)
+                launches[tag].update(got)
+                for name in set(per_chunk) | set(got):
+                    if got.get(name, 0) != per_chunk.get(name, 0):
+                        raise AssertionError(
+                            f"[{tag}] stream {s} chunk {c}: {name} launched "
+                            f"{got.get(name, 0)} times, expected "
+                            f"{per_chunk.get(name, 0)}")
+                types = out["types"]
+                for k, v in out.items():
+                    if v.is_floating_point() \
+                            and not bool(torch.isfinite(v).all()):
+                        raise AssertionError(f"[{tag}] stream {s} chunk {c}:"
+                                             f" {k} is not finite")
+                if int(types[0]) != 1 or out["boxes"].shape != (
+                        T, (H_HD // 8) * (W_HD // 8), 4):
+                    raise AssertionError(
+                        f"[{tag}] stream {s} chunk {c}: bad output (types[0]"
+                        f"={int(types[0])}, boxes "
+                        f"{tuple(out['boxes'].shape)})")
+                mix = [int((types == k).sum()) for k in (1, 2, 3)]
+                print(f"[{tag}] stream {s} chunk {c}: {dt:.1f} ms "
+                      f"({T / dt * 1e3:.1f} frames/s), pipelines {mix}, "
+                      f"mean_f1 {float(out['mean_f1']):.4f}, bits "
+                      f"{float(out['total_bits']):.0f}, latency "
+                      f"{float(out['latency']):.4f} s")
+    for tag, ms in chunk_ms.items():
+        n = len(ms)
+        print(f"[{tag}] launches over {n} chunks: {dict(launches[tag])}; "
+              f"per chunk: { {k: v / n for k, v in launches[tag].items()} }")
+        # the first chunk pays for the warm-up (cuDNN's plans, the
+        # allocator): the median of the rest is the steady state
+        steady = statistics.median(ms[1:])
+        print(f"[{tag}] {n} chunks of {T}x{H_HD}x{W_HD}: first {ms[0]:.1f} "
+              f"ms, median of the rest {steady:.1f} ms "
+              f"({T / steady * 1e3:.1f} frames/s), peak device memory "
+              f"{peak[tag] / 2**30:.2f} GiB, {mallocs[tag]} cudaMalloc calls "
+              f"in the steady chunks")
+    return {tag: dict(n) for tag, n in launches.items()}
 
 
-def phase_profile(params, det_cfg) -> None:
-    """One steady-state chunk of the dense stream under torch.profiler:
-    host wall time, device busy time and share, kernel launches, and the
-    device time by kernel."""
+def phase_profile(tag: str, params, cfg) -> None:
+    """One steady-state chunk of the dense stream under torch.profiler,
+    after two unprofiled chunks: host wall time, device busy time and
+    share, device ops, the device time by kernel and the host time by
+    operator.  Run in a process of its own (``--profile TAG``): once the
+    profiler has run, the host runs every operator of the process more
+    slowly."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.roundtrip import RoundtripConfig, roundtrip_chunk
+    from repro_torch.core.roundtrip import roundtrip_chunk
     from repro_torch.sim.video_source import generate_chunk
-    cfg = RoundtripConfig(level=LEVEL, det_cfg=det_cfg)
-    raw, gtb, gtv = generate_chunk(_streams()[1], 3 * T, T)
-    torch.cuda.synchronize()
+    warm = []
+    for c in (1, 2, 3):
+        raw, gtb, gtv = generate_chunk(_streams()[1], c * T, T)
+        torch.cuda.synchronize()
+        if c < 3:
+            t0 = time.perf_counter()
+            roundtrip_chunk(raw, gtb, gtv, params, tr1=TR1, tr2=TR2,
+                            bw_kbps=6000.0, cfg=cfg)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+    print(f"[profile] {tag}: alone in a process, unprofiled chunks "
+          f"{', '.join(f'{ms:.1f}' for ms in warm)} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -351,46 +516,112 @@ def phase_profile(params, det_cfg) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
     n = sum(r[1] for r in rows)
-    print(f"[profile] one chunk {T}x{H_HD}x{W_HD}: wall {wall:.1f} ms, "
-          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%, idle "
+    print(f"[profile] {tag}: one chunk {T}x{H_HD}x{W_HD}: wall {wall:.1f} "
+          f"ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%, idle "
           f"{100 - 100 * busy / wall:.1f}%), {n} device ops")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"[profile]   {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+    # the host side: the operators' own CPU time, which is most of the wall
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    print(f"[profile] {tag}: host self time {sum(r[0] for r in host):.2f} "
+          f"ms over {sum(r[1] for r in host)} host ops; the largest:")
+    for ms, count, key in host[:10]:
+        print(f"[profile]   host {ms:8.3f} ms  {count:5d}x  {key[:80]}")
 
 
-def phase_small_parity(params, det_cfg) -> None:
-    """A 64x96 chunk through the kernels on the card against the port's
-    plain path on the CPU (the contract of tests/test_torch_roundtrip.py)."""
+def phase_admit_all(params, cfg) -> None:
+    """The gate admitting all 144 regions must reproduce the ungated
+    detector on a full-width chunk, within the [parity] tolerances (cuDNN
+    may pick another algorithm for the patch batch than for the frame)."""
+    import dataclasses
     import torch
+    from repro_torch.core.roi import RoiConfig
+    from repro_torch.core.roundtrip import roundtrip_chunk
+    from repro_torch.sim.video_source import generate_chunk
+    raw, gtb, gtv = generate_chunk(_streams()[0], 0, T)
+    n_regions = (H_HD // ROI["region_px"]) * (W_HD // ROI["region_px"])
+    every = dataclasses.replace(cfg, roi=RoiConfig(**dict(
+        ROI, capacity=n_regions, threshold=-1.0)))
+    kw = dict(tr1=TR1, tr2=TR2, bw_kbps=6000.0)
+    gated = roundtrip_chunk(raw, gtb, gtv, params, cfg=every, **kw)
+    full = roundtrip_chunk(raw, gtb, gtv, params,
+                           cfg=dataclasses.replace(cfg, roi=None), **kw)
+    if not torch.equal(gated["types"], full["types"]):
+        raise AssertionError("admit-all: frame types differ")
+    torch.testing.assert_close(gated["scores"], full["scores"], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(gated["boxes"], full["boxes"], rtol=0,
+                               atol=1e-2)
+    print(f"[roi] admit-all ({n_regions} of {n_regions} regions) == ungated "
+          f"on {T}x{H_HD}x{W_HD}: max |dscore| "
+          f"{float((gated['scores'] - full['scores']).abs().max()):.3g}, max "
+          f"|dbox| {float((gated['boxes'] - full['boxes']).abs().max()):.3g}")
+
+
+def phase_small_parity(params, det_cfg) -> dict:
+    """64x96 chunks through the kernels on the card against the port's
+    plain path on the CPU (the contract of tests/test_torch_roundtrip.py):
+    the default config at two rungs and two threshold pairs, then every
+    codec variant with and without the ROI gate.  Returns the launch
+    counts of the card runs."""
+    import torch
+    from repro_torch.codec.video_codec import VideoCodecConfig
+    from repro_torch.core.roi import RoiConfig
     from repro_torch.core.roundtrip import RoundtripConfig, roundtrip_chunk
+    from repro_torch.kernels import build
     from repro_torch.sim.video_source import StreamConfig, generate_chunk
     raw, gtb, gtv = generate_chunk(
         StreamConfig(height=64, width=96, n_objects=3, seed=0), 0, 4,
         device="cpu")
     cpu_params = {k: v.cpu() for k, v in params.items()}
-    for level in (2, 3):
-        for tr1, tr2 in ((0.05, 0.1), (0.5, 0.02)):
-            kw = dict(tr1=tr1, tr2=tr2, bw_kbps=6000.0,
-                      cfg=RoundtripConfig(level=level, det_cfg=det_cfg))
-            gpu = roundtrip_chunk(raw, gtb, gtv, params, **kw)
-            cpu = roundtrip_chunk(raw, gtb, gtv, cpu_params, device="cpu",
-                                  **kw)
-            g = {k: v.cpu() for k, v in gpu.items()}
-            if not torch.equal(g["types"], cpu["types"]) \
-                    or not torch.equal(g["anchor_q"], cpu["anchor_q"]):
-                raise AssertionError(f"small parity level {level}: types "
-                                     f"{g['types'].tolist()} vs "
-                                     f"{cpu['types'].tolist()}")
-            for k, kwt in (("total_bits", dict(rtol=1e-4, atol=0)),
-                           ("scores", dict(rtol=0, atol=1e-4)),
-                           ("boxes", dict(rtol=0, atol=1e-2)),
-                           ("latency", dict(rtol=1e-5, atol=0))):
-                torch.testing.assert_close(g[k], cpu[k], **kwt)
-            print(f"[parity] 64x96 T=4 level {level} tr=({tr1},{tr2}): card "
-                  f"== CPU plain path (types {g['types'].tolist()})")
+    runs = [(f"level {level} tr=({tr1},{tr2})", (tr1, tr2),
+             RoundtripConfig(level=level, det_cfg=det_cfg))
+            for level in (2, 3) for tr1, tr2 in ((0.05, 0.1), (0.5, 0.02))]
+    runs += [(f"level 2 {search} {dtype} roi={roi is not None}", (0.5, 0.02),
+              RoundtripConfig(level=2, det_cfg=det_cfg, roi=roi,
+                              codec=VideoCodecConfig(search=search,
+                                                     dtype=dtype)))
+             for search in ("exhaustive", "diamond")
+             for dtype in ("float32", "bfloat16")
+             for roi in (None, RoiConfig(capacity=3))]
+    build.reset_launches()
+    for label, (tr1, tr2), cfg in runs:
+        kw = dict(tr1=tr1, tr2=tr2, bw_kbps=6000.0, cfg=cfg)
+        gpu = roundtrip_chunk(raw, gtb, gtv, params, **kw)
+        cpu = roundtrip_chunk(raw, gtb, gtv, cpu_params, device="cpu", **kw)
+        g = {k: v.cpu() for k, v in gpu.items()}
+        if not torch.equal(g["types"], cpu["types"]) \
+                or not torch.equal(g["anchor_q"], cpu["anchor_q"]):
+            raise AssertionError(f"small parity {label}: types "
+                                 f"{g['types'].tolist()} vs "
+                                 f"{cpu['types'].tolist()}")
+        for k, kwt in (("total_bits", dict(rtol=1e-4, atol=0)),
+                       ("scores", dict(rtol=0, atol=1e-4)),
+                       ("boxes", dict(rtol=0, atol=1e-2)),
+                       ("latency", dict(rtol=1e-5, atol=0))):
+            torch.testing.assert_close(g[k], cpu[k], **kwt)
+        print(f"[parity] 64x96 T=4 {label}: card == CPU plain path (types "
+              f"{g['types'].tolist()})")
+    launches = dict(build.LAUNCHES)
+    print(f"[parity] launches over {len(runs)} chunks: {launches}")
+    return launches
 
 
-def main() -> int:
+def profile_in_child(tag: str) -> None:
+    """``phase_profile`` of one path in a fresh process; its lines are
+    printed here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--profile", tag], capture_output=True, text=True,
+                         timeout=600)
+    print(res.stdout, end="")
+    if res.returncode != 0:
+        raise RuntimeError(f"profile of {tag} failed:\n{res.stderr}")
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -398,27 +629,44 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.models.detection import TinyDetectorConfig, init
 
-    card = phase_card()
     resolve_device()
+    det_cfg = TinyDetectorConfig()
+    params = init(torch.Generator().manual_seed(1), det_cfg)
+    paths = path_configs(det_cfg)
+    if argv[:1] == ["--profile"]:
+        phase_profile(argv[1], params, paths[argv[1]][0])
+        return 0
+
+    card = phase_card()
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_motion_sad(g), *check_blockdct(g), check_qtransfer(g)]
+    kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
+               check_roi_gather(g)]
     for k in kernels:
+        lib = "" if k["library_ms"] is None \
+            else f", library {k['library_ms'] * 1e3:.1f} us"
         print(f"[kernels] {k['name']} ({k['shape']}): {k['ms'] * 1e3:.1f} us,"
-              f" plain {k['plain_ms'] * 1e3:.1f} us, bound "
+              f" plain {k['plain_ms'] * 1e3:.1f} us{lib}, bound "
               f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']})")
 
-    det_cfg = TinyDetectorConfig()
-    params = init(torch.Generator().manual_seed(1), det_cfg)
-    launches, _ = phase_main_path(params, det_cfg)
-    phase_profile(params, det_cfg)
-    phase_small_parity(params, det_cfg)
+    launches = run_paths(params, paths)
+    for tag in paths:
+        profile_in_child(tag)
+    phase_admit_all(params, paths["roi"][0])
+    launches["parity"] = phase_small_parity(params, det_cfg)
 
+    # each form's launches from the first path that runs it; the bf16
+    # qtransfer is on no path (the reference reaches it only from its
+    # kernel tests and benchmarks)
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        k["path"] = next((p for p, n in launches.items() if n.get(k["name"])),
+                         None)
+        k["launches"] = launches[k["path"]][k["name"]] if k["path"] else 0
+        if k["path"] is None and k["name"] != "qtransfer_bf16":
+            raise AssertionError(f"{k['name']} was launched on no path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -428,4 +676,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

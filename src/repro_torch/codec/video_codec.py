@@ -3,8 +3,9 @@ vectors and a DCT-quantised residual (port of
 ``repro.codec.video_codec``, single stream, unmasked).
 
 Chunks are (T, H, W) luma in [0, 255].  The P-frame loop is a Python loop
-over frames; each P-frame launches one ``motion_sad``, one ``qtransfer``
-(motion compensation) and one ``blockdct`` kernel on CUDA.
+over frames; each P-frame launches one ``motion_sad`` (in the config's
+search and storage dtype), one ``qtransfer`` (motion compensation) and
+one ``blockdct`` kernel on CUDA.
 """
 from __future__ import annotations
 
@@ -27,8 +28,16 @@ class VideoCodecConfig:
     search_radius: int = 8
     quality: float = 50.0        # quantizer quality factor (QP analogue)
     gop: int = 30                # I-frame period
-    dtype: str = "float32"       # search storage dtype (only f32 is ported)
-    search: str = "exhaustive"   # motion search strategy
+    dtype: str = "float32"       # search storage dtype: float32 | bfloat16
+    search: str = "exhaustive"   # motion search strategy: exhaustive | diamond
+
+    @property
+    def search_dtype(self):
+        """The motion search's storage dtype: torch.bfloat16 for
+        "bfloat16"/"bf16", else None (f32)."""
+        if self.dtype in ("bfloat16", "bf16"):
+            return torch.bfloat16
+        return None
 
 
 @dataclasses.dataclass
@@ -63,7 +72,7 @@ def _encode_iframe(frame, qtab):
 def _encode_pframe(frame, ref_recon, qtab, cfg: VideoCodecConfig):
     H, W = frame.shape
     mv, _ = M.block_sad(frame, ref_recon, cfg.search_radius,
-                        search=cfg.search)
+                        dtype=cfg.search_dtype, search=cfg.search)
     pred = M.warp_blocks(ref_recon, mv)
     resid = frame.to(f32) - pred
     q, rec_resid = B.dct_quantize(B.blockify(resid), qtab)
@@ -77,8 +86,6 @@ def _encode_chunk(frames, cfg: VideoCodecConfig) -> EncodedChunk:
     """frames: (T, H, W) on the device to encode on.  Frame 0 is the
     I-frame; every later frame is a P-frame predicted from the previous
     reconstruction."""
-    if cfg.dtype not in ("float32", "f32"):
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: only f32 is ported")
     T, H, W = frames.shape
     frames = frames.to(f32)
     qtab = B.quant_table(cfg.quality, frames.device)

@@ -1,5 +1,6 @@
 """Hybrid decoder + the 3 execution pipelines, paper §IV-B Fig. 6 (port of
-``repro.core.hybrid_decoder``: the single-stream decode-execute).
+``repro.core.hybrid_decoder``: the single-stream decode-execute, full
+frame or ROI-gated).
 
 Pipeline ①: decoded HD anchors -> DNN inference
 Pipeline ②: LR frame -> quality transfer from anchors -> DNN inference
@@ -19,6 +20,7 @@ from repro_torch.codec.rate_model import upscale_nearest
 from repro_torch.core.quality_transfer import (residual_to_pixels,
                                                transfer_frame)
 from repro_torch.core.reuse import reuse_chunk
+from repro_torch.core.roi import roi_detect
 from repro_torch.codec.video_codec import EncodedChunk
 from repro_torch.device import resolve_device
 from repro_torch.models import detection as D
@@ -91,9 +93,11 @@ def _transfer(anchor_plane, anchor_idx, mvs_hd, residual_up, frames, types):
 
 def _execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes, gt_valid,
                    detector_params, det_cfg, bw_kbps, queue_delay, total_bits,
-                   costs: PipelineCosts):
-    """Upscale, quality transfer, one detector forward over the chunk,
-    reuse, F1 and the latency model."""
+                   costs: PipelineCosts, roi=None):
+    """Upscale, quality transfer, one detector forward over the chunk
+    (ROI-gated onto the top-K regions when ``roi`` is a
+    :class:`~repro_torch.core.roi.RoiConfig`), reuse, F1 and the latency
+    model."""
     H, W = anchor_hd.shape[1:]
     lr_up = upscale_nearest(enc.recon, H, W)
     aidx = anchor_index(types)
@@ -105,7 +109,12 @@ def _execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes, gt_valid,
                    types)
 
     # pipelines ① + ② as one detector forward over the whole chunk
-    boxes_i, scores_i = _detect(detector_params, det_cfg, qt)
+    if roi is not None:
+        boxes_i, scores_i = roi_detect(
+            detector_params, det_cfg, roi, qt, enc.mv, enc.residual_q,
+            enc.recon.shape[1:])
+    else:
+        boxes_i, scores_i = _detect(detector_params, det_cfg, qt)
     boxes, scores = reuse_chunk(types, mvs_hd, boxes_i, scores_i)
     f1 = D.f1_score(boxes, scores, gt_boxes, gt_valid)
 
@@ -126,14 +135,15 @@ def decode_execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes,
                          gt_valid, detector_params, det_cfg, *, bw_kbps,
                          queue_delay=0.0, total_bits=0.0,
                          costs: PipelineCosts = PipelineCosts(),
-                         device=None) -> dict:
+                         roi=None, device=None) -> dict:
     """One chunk of one stream through the 3 pipelines.
 
     enc: EncodedChunk; types: (T,) int; anchor_hd: (T, H, W);
-    gt_boxes/gt_valid: (T, N, 4)/(T, N).  Every input is moved to the
-    resolved device (CUDA unless ``device`` says otherwise).  Returns a
-    dict of tensors (boxes, scores, f1, mean_f1, latency, t_trans,
-    t_queue, t_comp).
+    gt_boxes/gt_valid: (T, N, 4)/(T, N); roi: an optional
+    :class:`~repro_torch.core.roi.RoiConfig` gate.  Every input is moved
+    to the resolved device (CUDA unless ``device`` says otherwise).
+    Returns a dict of tensors (boxes, scores, f1, mean_f1, latency,
+    t_trans, t_queue, t_comp).
     """
     dev = resolve_device(device)
     enc = EncodedChunk(**{f.name: getattr(enc, f.name).to(dev)
@@ -146,4 +156,4 @@ def decode_execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes,
         torch.as_tensor(gt_boxes, dtype=f32, device=dev),
         torch.as_tensor(gt_valid, device=dev), params, det_cfg, bw_kbps,
         queue_delay, torch.as_tensor(total_bits, dtype=f32, device=dev),
-        costs)
+        costs, roi=roi)

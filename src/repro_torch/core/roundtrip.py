@@ -1,12 +1,14 @@
 """Encode -> decode round trip of one chunk of one stream (port of
-``repro.core.roundtrip``: the pinned-anchor-quality, full-frame path).
+``repro.core.roundtrip``: the pinned-anchor-quality path, full frame or
+ROI-gated, with any codec search and storage dtype).
 
 ``roundtrip_chunk`` runs ladder downscale, the I/P video encode, Eq. 3
 classification, the JPEG anchor encode of every frame (one batched
 blockdct launch, masked to the type-1 frames), the rate model and the
 3-pipeline decode-execute.  ``roundtrip_oracle`` composes the same steps
 the way the reference's oracle does: a per-anchor JPEG loop between the
-encode and ``decode_execute_chunk``.
+encode and ``decode_execute_chunk``.  The anchor budget search
+(``anchor_search=True``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.codec.video_codec import (VideoCodecConfig, _encode_chunk,
 from repro_torch.core.classification import classify_frames
 from repro_torch.core.hybrid_decoder import (PipelineCosts, _execute_chunk,
                                              decode_execute_chunk)
+from repro_torch.core.roi import RoiConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.detection import TinyDetectorConfig
 
@@ -31,16 +34,16 @@ f32 = torch.float32
 @dataclasses.dataclass(frozen=True)
 class RoundtripConfig:
     """``level`` is the bitrate-ladder rung (§VI-A): it sets the LR shape
-    and the codec quality.  ``roi`` and ``anchor_search`` must keep their
-    defaults: ROI-gated inference and the anchor budget search are not
-    ported yet."""
+    and the codec quality.  ``roi`` gates the detector onto the top-K
+    regions (None: full frame).  ``anchor_search`` must stay False: the
+    anchor budget search is not ported yet."""
     level: int = 2
     codec: VideoCodecConfig = VideoCodecConfig()
     anchor_quality: float = 70.0
     det_cfg: TinyDetectorConfig = TinyDetectorConfig()
     costs: PipelineCosts = PipelineCosts()
     fps: float = 30.0
-    roi: object | None = None
+    roi: RoiConfig | None = None
     anchor_search: bool = False
 
     def codec_for(self, level: int | None = None) -> VideoCodecConfig:
@@ -49,8 +52,6 @@ class RoundtripConfig:
 
 
 def _check_ported(cfg: RoundtripConfig) -> None:
-    if cfg.roi is not None:
-        raise NotImplementedError("RoundtripConfig.roi is not ported yet")
     if cfg.anchor_search:
         raise NotImplementedError(
             "RoundtripConfig.anchor_search is not ported yet")
@@ -101,7 +102,7 @@ def _roundtrip_execute(raw, enc, gt_boxes, gt_valid, params, tr1, tr2,
     anchor_q = torch.where(is1, cfg.anchor_quality, 0.0)
     out = _execute_chunk(enc, types, anchor_hd, gt_boxes, gt_valid, params,
                          cfg.det_cfg, bw_kbps, queue_delay,
-                         video_bits + anchor_bits, cfg.costs)
+                         video_bits + anchor_bits, cfg.costs, roi=cfg.roi)
     return _finish(out, types, video_bits, anchor_bits, anchor_q)
 
 
@@ -153,5 +154,6 @@ def roundtrip_oracle(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
     out = decode_execute_chunk(
         enc, types, anchor_hd, gt_boxes, gt_valid, params, cfg.det_cfg,
         bw_kbps=bw_kbps, queue_delay=queue_delay,
-        total_bits=video_bits + anchor_bits, costs=cfg.costs, device=dev)
+        total_bits=video_bits + anchor_bits, costs=cfg.costs, roi=cfg.roi,
+        device=dev)
     return _finish(out, types, video_bits, anchor_bits, anchor_q)

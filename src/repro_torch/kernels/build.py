@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("motion_sad", "blockdct", "qtransfer")
+SOURCES = ("motion_sad", "blockdct", "qtransfer", "roi_gather")
 # no --use_fast_math: blockdct divides y / qtab and rounds exactly as the
 # reference does
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,6 +125,15 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """The storage dtype a kernel form runs in: torch.float32 for None or
+    torch.float32, or torch.bfloat16 (every sum still taken in f32)."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"storage dtype must be None (f32) or "
+                         f"torch.bfloat16, got {dtype}")
+    return dtype or torch.float32
 
 
 def check_cuda_tensor(name: str, t, dtype, device) -> None:

@@ -13,6 +13,10 @@ swapped:
   (a negative start counts from the end, then clamps), for any |mv|.
 * ``edge="block"`` reproduces ``repro.kernels.qtransfer.ref.qtransfer_ref``:
   dy clamped to +-``radius``, the block's x start clamped to [0, W-16].
+  With ``dtype=torch.bfloat16`` it follows
+  ``repro.kernels.qtransfer.ops.qtransfer(dtype=bf16)``: anchor and
+  residual stored as bf16, gather and add in f32, clip, output in bf16.
+  The pixel mode is f32 only: the reference has no bf16 ``warp_blocks``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.kernels import build
 
 MB = 16
 EDGES = ("pixel", "block")
+f32 = torch.float32
 
 
 def _padded_start(s, n: int):
@@ -54,31 +59,47 @@ def _source_index(mv, H: int, W: int, edge: str, radius: int):
     return sy * W + sx
 
 
+def _stored(anchor, resid, dtype):
+    """anchor and resid in the storage dtype (None keeps them)."""
+    if dtype is None:
+        return anchor, resid
+    return anchor.to(dtype), None if resid is None else resid.to(dtype)
+
+
 def qtransfer_plain(anchor, mv, resid=None, *, edge: str = "pixel",
-                    radius: int = 16):
+                    radius: int = 16, dtype=None):
     """anchor (B, H, W), mv (B, H/16, W/16, 2) int32, resid (B, H, W) or
-    None -> (B, H, W): the gathered blocks, plus ``resid`` and clipped to
-    [0, 255] when a residual is given."""
+    None -> (B, H, W) in the storage dtype: the gathered blocks, plus
+    ``resid`` (added in f32) and clipped to [0, 255] when a residual is
+    given."""
     B, H, W = anchor.shape
+    anchor, resid = _stored(anchor, resid, dtype)
     idx = _source_index(mv, H, W, edge, radius)
-    out = anchor.reshape(B, H * W).gather(1, idx.reshape(B, H * W))
+    out = anchor.to(f32).reshape(B, H * W).gather(1, idx.reshape(B, H * W))
     out = out.reshape(B, H, W)
     if resid is not None:
-        out = (out + resid).clamp(0.0, 255.0)
-    return out
+        out = (out + resid.to(f32)).clamp(0.0, 255.0)
+    return out.to(anchor.dtype)
 
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, _P, _P]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
 
 
 def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
-              radius: int = 16):
-    """Batched gather as :func:`qtransfer_plain`.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+              radius: int = 16, dtype=None):
+    """Batched gather as :func:`qtransfer_plain`.  ``dtype`` is the
+    storage dtype: None (the inputs' own, f32 on a kernel) or
+    torch.bfloat16, in the block mode only.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (counted as ``qtransfer`` or
+    ``qtransfer_bf16``)."""
     if edge not in EDGES:
         raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
+    store = build.storage_dtype(dtype)
+    if store == torch.bfloat16 and edge != "block":
+        raise ValueError("the bf16 storage variant exists in the block edge "
+                         "mode only (the reference has no bf16 warp_blocks)")
     if anchor.dim() != 3 or anchor.shape[1] % MB or anchor.shape[2] % MB:
         raise ValueError(f"anchor must be (B, H, W) with H, W multiples of "
                          f"{MB}, got {tuple(anchor.shape)}")
@@ -90,17 +111,21 @@ def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
         raise ValueError(f"resid must be {tuple(anchor.shape)}, "
                          f"got {tuple(resid.shape)}")
     if anchor.device.type == "cpu":
-        return qtransfer_plain(anchor, mv, resid, edge=edge, radius=radius)
+        return qtransfer_plain(anchor, mv, resid, edge=edge, radius=radius,
+                               dtype=dtype)
     if anchor.device.type != "cuda":
         raise ValueError(f"qtransfer runs on cpu or cuda, not {anchor.device}")
-    build.check_cuda_tensor("anchor", anchor, torch.float32, anchor.device)
+    bf16 = store == torch.bfloat16
+    anchor, resid = _stored(anchor, resid, dtype)
+    build.check_cuda_tensor("anchor", anchor, store, anchor.device)
     build.check_cuda_tensor("mv", mv, torch.int32, anchor.device)
     if resid is not None:
-        build.check_cuda_tensor("resid", resid, torch.float32, anchor.device)
+        build.check_cuda_tensor("resid", resid, store, anchor.device)
     out = torch.empty_like(anchor)
     fn = build.kernel_function("qtransfer", "qtransfer_launch", _ARGTYPES)
-    build.launch("qtransfer", fn, build.ptr(anchor), build.ptr(mv),
+    build.launch("qtransfer_bf16" if bf16 else "qtransfer", fn,
+                 build.ptr(anchor), build.ptr(mv),
                  None if resid is None else build.ptr(resid), B, H, W,
-                 EDGES.index(edge), radius, build.ptr(out),
+                 EDGES.index(edge), radius, int(bf16), build.ptr(out),
                  build.stream_ptr(anchor.device))
     return out

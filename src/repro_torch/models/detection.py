@@ -67,20 +67,29 @@ def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def layer_strides(cfg: TinyDetectorConfig) -> tuple[int, ...]:
+    """Each conv layer's stride: 2 for the first log2(cfg.stride) layers,
+    then 1."""
+    n_down = {2: 1, 4: 2, 8: 3}[cfg.stride]
+    return tuple(2 if i < n_down else 1 for i in range(len(cfg.channels)))
+
+
+def conv_layer(x, w, b, stride: int):
+    """One conv layer on NCHW input: XLA "SAME" zero padding, a 3x3 conv
+    at ``stride``, + bias, ReLU."""
+    ph = _same_pad(x.shape[2], w.shape[2], stride)
+    pw = _same_pad(x.shape[3], w.shape[3], stride)
+    return F.relu(F.conv2d(F.pad(x, (*pw, *ph)), w, b, stride=stride))
+
+
 def forward(params: dict, cfg: TinyDetectorConfig, frames):
     """frames: (B, H, W) [0..255] -> (B, H/s, W/s, 5) raw head output.
 
     Channels: [objectness logit, dy, dx, log h, log w].
     """
     x = (frames.to(f32) / 255.0 - 0.5)[:, None]
-    n_down = {2: 1, 4: 2, 8: 3}[cfg.stride]
-    for i in range(len(cfg.channels)):
-        stride = 2 if i < n_down else 1
-        ph = _same_pad(x.shape[2], 3, stride)
-        pw = _same_pad(x.shape[3], 3, stride)
-        x = F.pad(x, (*pw, *ph))
-        x = F.relu(F.conv2d(x, params[f"conv{i}"], params[f"bias{i}"],
-                            stride=stride))
+    for i, stride in enumerate(layer_strides(cfg)):
+        x = conv_layer(x, params[f"conv{i}"], params[f"bias{i}"], stride)
     x = F.conv2d(x, params["head"], params["head_b"])
     return x.permute(0, 2, 3, 1)
 

@@ -142,8 +142,8 @@ def test_block_sad_scan_and_block_sad_match_reference(frames):
         mv, sad = fn(_t(cur), _t(ref), 8)
         np.testing.assert_array_equal(mv.numpy(), jmv)
         np.testing.assert_array_equal(sad.numpy(), jsad)
-    with pytest.raises(NotImplementedError):
-        M.block_sad(_t(cur), _t(ref), 8, search="diamond")
+    with pytest.raises(ValueError, match="unknown search"):
+        M.block_sad(_t(cur), _t(ref), 8, search="spiral")
 
 
 def test_warp_blocks_exact(frames):

@@ -92,13 +92,13 @@ def test_roundtrip_oracle_agrees_with_roundtrip_chunk(stream, tr1, tr2):
 
 
 def test_roundtrip_rejects_unported_options(stream):
+    # the anchor budget search is the one option not ported yet
     (raw, gtb, gtv), jparams = stream
     params = detector_params_from_jax(jparams, "cpu")
-    for cfg in (RoundtripConfig(anchor_search=True),
-                RoundtripConfig(roi=object())):
-        with pytest.raises(NotImplementedError):
-            roundtrip_chunk(raw, gtb, gtv, params, tr1=0.05, tr2=0.1,
-                            bw_kbps=6000.0, cfg=cfg, device="cpu")
+    for fn in (roundtrip_chunk, roundtrip_oracle):
+        with pytest.raises(NotImplementedError, match="anchor_search"):
+            fn(raw, gtb, gtv, params, tr1=0.05, tr2=0.1, bw_kbps=6000.0,
+               cfg=RoundtripConfig(anchor_search=True), device="cpu")
 
 
 # ------------------------------------------------ decode-side pieces, exact

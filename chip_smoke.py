@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
-    python3 chip_smoke.py --profile main|roi   (phase 5's profile alone)
+    python3 chip_smoke.py --profile main|roi|lm   (one profile alone)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -10,7 +10,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build: compiles the port's CUDA kernels (``src/repro_torch/kernels/csrc``)
    with nvcc, one process per source;
 3. kernels: each kernel form (motion_sad exhaustive/diamond x f32/bf16,
-   blockdct forward and inverse, qtransfer f32 and bf16, roi_gather)
+   blockdct forward and inverse, qtransfer f32 and bf16, roi_gather, and
+   seven flash_attention forms: llama3.2-1B's and chatglm3-6B's heads,
+   a 1024 window, cross Sq != Sk, non-causal, ragged, f32 inputs)
    against its plain PyTorch version on the card, at its path's shapes,
    with its time, the plain version's time and its bound (CUDA events,
    median of 20 timed runs after warm-up);
@@ -27,7 +29,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. parity: 64x96 chunks through the kernels on the card, every codec
    variant with and without the gate, held against the port's plain
    CPU path;
-7. one JSON line listing the kernels; 8. the JSON result line.
+7. lm: llama3.2-1B at full width and depth (random weights from a seed)
+   serves two 4096-token requests: prefill through ``flash_attention``
+   (16 launches a prefill, nothing else), 32 greedy decode steps over the
+   KV cache (no kernel); every layer's attention held against the plain
+   path on the kernel path's inputs, the prefill's logits and caches
+   against the plain path's and prefill + one decode step against the
+   forward over 4097 tokens held over the first 2 layers (the random-init
+   model is chaotic deeper down) and printed for all 16; one prefill and
+   one decode step profiled in a process of their own; then
+   chatglm3-6B's widths (2 of 28 layers, q/k/v biases on) prefill 1024
+   tokens through the D=128 kernel, held against the plain path;
+8. one JSON line listing the kernels; 9. the JSON result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -44,10 +57,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores.  TF32 is off in the port.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, f32
+# outside the tensor cores and bf16 on them (dense).  TF32 is off in the
+# port.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 F32, BF16 = 4, 2
 
 H_HD, W_HD, T = 720, 1280, 30          # one second of 720p at 30 fps
@@ -64,9 +79,10 @@ ROI_CODEC = dict(search="diamond", dtype="bfloat16")
 SOURCE = "src/repro_torch/kernels/csrc/"
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -372,6 +388,375 @@ def check_roi_gather(g) -> dict:
                 shape=f"T={T} K={K} P={P}")
 
 
+# the flash_attention forms [kernels] holds against the plain version:
+# (label, B, H, Hk, Sq, Sk, D, causal, window, dtype); the first is the
+# llama3.2-1B prefill's shape (one request), the second chatglm3-6b's heads
+FLASH_FORMS = [
+    ("llama3.2-1b heads", 1, 32, 8, 4096, 4096, 64, True, None, "bf16"),
+    ("chatglm3-6b heads", 1, 32, 2, 2048, 2048, 128, True, None, "bf16"),
+    ("window 1024", 1, 48, 8, 4096, 4096, 128, True, 1024, "bf16"),
+    ("cross Sq=64 Sk=192", 2, 32, 8, 64, 192, 64, True, None, "bf16"),
+    ("non-causal", 1, 32, 8, 2048, 2048, 64, False, None, "bf16"),
+    ("ragged S=1000", 1, 32, 8, 1000, 1000, 64, True, None, "bf16"),
+    ("f32 inputs", 1, 32, 8, 1024, 1024, 64, True, None, "f32"),
+]
+# the reference's absolute tolerances (tests/test_kernels.py:36), plus
+# 2^-8 of |value|: half a bf16 ulp, since above |o| = 4 one ulp of the
+# bf16 output (0.03125) exceeds 0.03 and a kernel that rounds p to bf16
+# lands on the other side of a rounding step now and then
+FLASH_TOL = {"bf16": 0.03, "f32": 0.02}
+FLASH_RTOL = 2.0 ** -8
+# the LM path: llama3.2-1B at full width and depth, two requests of 4096
+# tokens, then greedy decode
+LM_BATCH, LM_SEQ, LM_DECODE = 2, 4096, 32
+# logits held as max|d| / max|logit|; caches and each layer's attention
+# output as max|d| / max|value|
+LM_REL_TOL = 0.05
+# layers of full width over which the model is held end to end (see
+# phase_lm)
+LM_HELD_LAYERS = 2
+
+
+def check_flash_attention(g) -> list[dict]:
+    """Each form against its plain version (``attention_ref`` in f32) on
+    the card, with its time, the plain version's, and the library's: one
+    ``scaled_dot_product_attention`` call on (B, H, S, D) views (a boolean
+    mask for the window form).  The bound counts the unmasked pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    dev = torch.device("cuda")
+    out = []
+    for label, B, H, Hk, Sq, Sk, D, causal, window, dt in FLASH_FORMS:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window)
+        o = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if o.dtype != dtype or o.shape != q.shape:
+            raise AssertionError(f"flash_attention {label}: {o.dtype} "
+                                 f"{tuple(o.shape)}")
+        d = (o.float() - ref.float()).abs()
+        err = float(d.max())
+        excess = float((d - FLASH_TOL[dt]
+                        - FLASH_RTOL * ref.float().abs()).max())
+        print(f"[kernels] flash_attention {label} B={B} H={H} Hk={Hk} "
+              f"Sq={Sq} Sk={Sk} D={D} {dt}: max|d| {err:.3g} vs plain "
+              f"(tolerance {FLASH_TOL[dt]} + 2^-8 |value|)")
+        if not excess <= 0:
+            raise AssertionError(f"flash_attention {label} disagrees with "
+                                 f"its plain version: {err}")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                           reps=5, inner=1, warmup=1)
+        q_pos = torch.arange(Sq, device=dev)[:, None]
+        k_pos = torch.arange(Sk, device=dev)[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= q_pos - k_pos < window
+        pairs = int(mask.sum())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        masking = dict(is_causal=causal) if window is None \
+            else dict(attn_mask=mask)
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **masking))
+        item = q.element_size()
+        # the products run on the bf16 tensor cores for f32 inputs too
+        b, by = bound_ms((2 * B * Sq * H + 2 * B * Sk * Hk) * D * item,
+                         4 * B * H * D * pairs, BF16_TC_OPS_PER_S)
+        out.append(dict(
+            name="flash_attention", mode=label, route="cuda",
+            source=SOURCE + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:75",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=library,
+            shape=f"B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D} {dt}"
+                  + (f" window={window}" if window else "")
+                  + ("" if causal else " non-causal"),
+            # the path that runs this very form, if one does
+            form_path={"llama3.2-1b heads": "lm",
+                       "chatglm3-6b heads": "chatglm3"}.get(label)))
+    return out
+
+
+def _rel_err(a, b) -> float:
+    """max|a - b| over max|b|, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _hold_logits(tag: str, got, ref, gate: bool = True) -> None:
+    """Logits within LM_REL_TOL of the reference's scale, and the same
+    greedy pick in every row, or picks whose reference logits differ by
+    less than the measured max|d| (a near tie).  ``gate=False`` prints
+    the comparison only."""
+    import torch
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[lm] {tag}: logits are not finite")
+    rel = _rel_err(got, ref)
+    d = float((got.float() - ref.float()).abs().max())
+    pick, pick_ref = got.argmax(-1), ref.argmax(-1)
+    gap = (ref.gather(-1, pick_ref[..., None])
+           - ref.gather(-1, pick[..., None])).abs().max()
+    same = float((pick == pick_ref).float().mean())
+    print(f"[lm] {tag}: max|dlogit| {d:.4g} = {rel:.4g} of max|logit| "
+          f"{float(ref.abs().max()):.4g} "
+          f"({f'tolerance {LM_REL_TOL}' if gate else 'not held'}); argmax "
+          f"agrees in {same:.3f} of rows, largest gap at a differing pick "
+          f"{float(gap):.3g}")
+    if not gate:
+        return
+    if not rel <= LM_REL_TOL:
+        raise AssertionError(f"[lm] {tag}: logits disagree ({rel})")
+    if float(gap) > d:
+        raise AssertionError(f"[lm] {tag}: greedy picks differ beyond a "
+                             f"near tie ({float(gap)} > {d})")
+
+
+def _cache_from_prefill(cfg, kv, seq_len: int) -> dict:
+    """A bf16 cache of ``cache_len(cfg, seq_len)`` slots holding the
+    prefill's k and v at slots [0, S), the rest empty (slot_pos -1)."""
+    import torch
+    from repro_torch.models import transformer_lm as M
+    from repro_torch.models.params import init_params
+    k, v = kv
+    S = k.shape[2]
+    cache = init_params(None, M.init_cache_specs(cfg, k.shape[1], seq_len),
+                        k.device)
+    cache["k"][:, :, :S] = k
+    cache["v"][:, :, :S] = v
+    cache["slot_pos"].fill_(-1)
+    cache["slot_pos"][:S] = torch.arange(S, dtype=torch.int32,
+                                         device=k.device)
+    return cache
+
+
+def _expect_launches(where: str, expected: dict) -> None:
+    """The launch counts since the last reset must be ``expected``
+    exactly: each kernel named, and no other."""
+    from repro_torch.kernels import build
+    got = dict(build.LAUNCHES)
+    for name in set(expected) | set(got):
+        if got.get(name, 0) != expected.get(name, 0):
+            raise AssertionError(f"{where}: {name} launched "
+                                 f"{got.get(name, 0)} times, expected "
+                                 f"{expected.get(name, 0)}")
+
+
+def phase_lm() -> dict:
+    """llama3.2-1B, full width and depth, ``attention_impl="pallas"``,
+    random weights from a seed: ``materialize`` and ``make_infer_fn``
+    prefill two requests of 4096 seeded tokens (one warm-up, then three
+    timed with CUDA events), the cache goes into ``cache_len(cfg, 4096 +
+    32)`` slots, and 32 greedy ``decode_step``s follow.  Each prefill must
+    launch exactly 16 ``flash_attention`` and nothing else, the decode no
+    kernel.  Then every layer's attention is held against the plain path
+    (``attention_impl="xla"``) on the kernel path's inputs; the prefill's
+    logits and caches against the plain path's, and prefill + one decode
+    step against ``forward`` over 4097 tokens, over the first
+    LM_HELD_LAYERS layers, and printed for all 16.  Returns the launches
+    of one prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeCase, get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_infer_fn, materialize
+    from repro_torch.models import transformer_lm as M
+    from repro_torch.models.params import param_bytes
+    base = get_arch("llama3_2_1b")
+    arch = dataclasses.replace(base, cfg=dataclasses.replace(
+        base.cfg, attention_impl="pallas"))
+    cfg = arch.cfg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    case = ShapeCase("prefill_4k", "prefill", batch=LM_BATCH, seq_len=LM_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, batch = materialize(g, arch, case)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name}: {cfg.param_count():,} parameters, "
+          f"{param_bytes(M.param_specs(cfg)) / 2**30:.2f} GiB in bf16, "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    prefill = make_infer_fn(arch, case)
+    per_prefill = {"flash_attention": cfg.n_layers}
+    times = []
+    for i in range(4):
+        build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, kv = prefill(params, batch)
+        end.record()
+        end.synchronize()
+        launched = dict(build.LAUNCHES)
+        _expect_launches("[lm] prefill", per_prefill)
+        if i:
+            times.append(start.elapsed_time(end))
+    if logits.shape != (LM_BATCH, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm] prefill logits {tuple(logits.shape)}")
+    prefill_ms = statistics.median(times)
+    print(f"[lm] prefill {LM_BATCH}x{LM_SEQ} tokens: "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms, median "
+          f"{prefill_ms:.2f} ms ({LM_BATCH * LM_SEQ / prefill_ms * 1e3:.0f} "
+          f"tokens/s); launches per prefill {launched}")
+
+    seq_len = LM_SEQ + LM_DECODE
+    cache = _cache_from_prefill(cfg, kv, seq_len)
+    decode = make_infer_fn(arch, ShapeCase("decode", "decode",
+                                           batch=LM_BATCH, seq_len=seq_len))
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    steps = []
+    build.reset_launches()
+    for i in range(LM_DECODE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, cache = decode(params, cache,
+                                    {"tokens": tok, "pos": LM_SEQ + i})
+        end.record()
+        tok = step_logits[:, -1].argmax(-1, keepdim=True).int()
+        steps.append((start, end))
+    torch.cuda.synchronize()
+    _expect_launches("[lm] decode", {})
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError("[lm] decode logits are not finite")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in steps)
+    print(f"[lm] decode: {LM_DECODE} greedy steps of {LM_BATCH} requests "
+          f"over a {seq_len}-slot cache: median {step_ms:.3f} ms a step "
+          f"({LM_BATCH / step_ms * 1e3:.1f} decoded tokens/s); no kernel "
+          f"launch; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The holds.  With the reference's random weights the full-depth model
+    # is chaotic: its fan_in rule scales wq/wk by the head count, so q and
+    # k have std ~8 and ~16 and the scores ~100, attention is close to an
+    # argmax, and two valid roundings of one layer part by O(1) a few
+    # layers on.  So every layer's attention is held on the kernel path's
+    # own inputs, the model end to end over its first LM_HELD_LAYERS
+    # layers, and the full-depth comparisons are printed.
+    xla = dataclasses.replace(cfg, attention_impl="xla")
+    rels, tf_logits = _attention_per_layer(params, cfg, batch["tokens"])
+    if not torch.equal(tf_logits, logits):
+        raise AssertionError("[lm] the per-layer loop is not the model's")
+    print(f"[lm] each layer's attention output, kernel vs plain on the "
+          f"kernel path's inputs (max|d| / max|value|, tolerance "
+          f"{LM_REL_TOL}): {', '.join(f'{r:.3g}' for r in rels)}")
+    if not max(rels) <= LM_REL_TOL:
+        raise AssertionError(f"[lm] a layer's attention disagrees: {rels}")
+    logits_x, kv_x = M.prefill_step(params, xla, batch["tokens"])
+    for name, a, b in (("k", kv[0], kv_x[0]), ("v", kv[1], kv_x[1])):
+        if not torch.equal(a[0], b[0]):
+            raise AssertionError(f"[lm] layer 0 {name} differs: it comes "
+                                 "before any attention")
+    _hold_logits(f"prefill pallas vs xla, all {cfg.n_layers} layers",
+                 logits, logits_x, gate=False)
+    by_layer = [_rel_err(a, b) for a, b in zip(kv[0], kv_x[0])]
+    print(f"[lm] cache k pallas vs xla by layer (not held): "
+          f"{', '.join(f'{r:.3g}' for r in by_layer)}")
+    del logits_x, kv_x
+
+    extra = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=g,
+                          device=dev, dtype=torch.int32)
+    tokens1 = torch.cat([batch["tokens"], extra], 1)
+    held = dataclasses.replace(cfg, n_layers=LM_HELD_LAYERS)
+    params_held = dict(params, blocks={k: v[:LM_HELD_LAYERS]
+                                       for k, v in params["blocks"].items()})
+    for c, p, gate in ((held, params_held, True), (cfg, params, False)):
+        n = c.n_layers
+        if gate:
+            lp, kvp = M.prefill_step(p, c, batch["tokens"])
+            lx, kvx = M.prefill_step(
+                p, dataclasses.replace(c, attention_impl="xla"),
+                batch["tokens"])
+            _hold_logits(f"prefill pallas vs xla, {n} of {cfg.n_layers} "
+                         "layers", lp, lx)
+            rel = max(_rel_err(kvp[0], kvx[0]), _rel_err(kvp[1], kvx[1]))
+            print(f"[lm] prefill cache pallas vs xla, {n} layers: max|d| "
+                  f"{rel:.4g} of max|value| (tolerance {LM_REL_TOL})")
+            if not rel <= LM_REL_TOL:
+                raise AssertionError(f"[lm] caches disagree ({rel})")
+        else:
+            kvp = kv
+        # prefill + one decode step == forward over S + 1 tokens (the
+        # last q and k tiles ragged)
+        full = M.forward(p, c, tokens1)[0]
+        full_last = full[:, -1:].clone()
+        del full
+        step, _ = M.decode_step(p, c, _cache_from_prefill(c, kvp, LM_SEQ + 1),
+                                extra, LM_SEQ)
+        _hold_logits(f"prefill {LM_SEQ} + decode vs forward {LM_SEQ + 1}, "
+                     f"{n} layers", step, full_last, gate=gate)
+    return launched
+
+
+def _attention_per_layer(params, cfg, tokens):
+    """The prefill's layer loop (``transformer_lm._trunk``) on the kernel
+    path, each layer's attention also taken by the plain path on the same
+    inputs: (max|d| / max|value| per layer, last-position logits)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as M
+    xla = dataclasses.replace(cfg, attention_impl="xla")
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = M._embed(params, cfg, tokens)
+    rels = []
+    for i in range(cfg.n_layers):
+        p = M._layer(params, i)
+        xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h, _ = M._attn(cfg, p, xn, positions)
+        rels.append(_rel_err(h, M._attn(xla, p, xn, positions)[0]))
+        x = x + h
+        x = x + M._ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return rels, M._logits(params, cfg, x[:, -1:])
+
+
+def phase_chatglm3() -> dict:
+    """chatglm3-6b at full width, 2 of its 28 layers, q/k/v biases on
+    (seeded, nonzero): prefill of one 1024-token request with the kernel
+    (D=128, GQA 16, half RoPE) against the plain attention path.  Returns
+    the launches of one prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer_lm as M
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_arch("chatglm3_6b").cfg, n_layers=2,
+                              qkv_bias=True, attention_impl="pallas")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = init_params(g, M.param_specs(cfg), dev)
+    for name in ("bq", "bk", "bv"):
+        params["blocks"][name].normal_(0.0, 0.02, generator=g)
+    tokens = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev,
+                           dtype=torch.int32)
+    build.reset_launches()
+    logits, kv = M.prefill_step(params, cfg, tokens)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    _expect_launches("[lm] chatglm3 prefill",
+                     {"flash_attention": cfg.n_layers})
+    logits_x, kv_x = M.prefill_step(
+        params, dataclasses.replace(cfg, attention_impl="xla"), tokens)
+    _hold_logits("chatglm3-6b (2 of 28 layers) prefill 1x1024 pallas vs "
+                 "xla", logits, logits_x)
+    rel = max(_rel_err(kv[0], kv_x[0]), _rel_err(kv[1], kv_x[1]))
+    print(f"[lm] chatglm3-6b cache pallas vs xla: max|d| {rel:.4g} of "
+          f"max|value|; launches {launches}")
+    if not rel <= LM_REL_TOL:
+        raise AssertionError(f"[lm] chatglm3 cache disagrees ({rel})")
+    return launches
+
+
 def _streams():
     from repro_torch.sim.video_source import StreamConfig
     # the reference's paper_stream_mix (one sparse, one dense stream),
@@ -440,12 +825,7 @@ def run_paths(params, paths: dict) -> dict:
                 peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
                 chunk_ms[tag].append(dt)
                 launches[tag].update(got)
-                for name in set(per_chunk) | set(got):
-                    if got.get(name, 0) != per_chunk.get(name, 0):
-                        raise AssertionError(
-                            f"[{tag}] stream {s} chunk {c}: {name} launched "
-                            f"{got.get(name, 0)} times, expected "
-                            f"{per_chunk.get(name, 0)}")
+                _expect_launches(f"[{tag}] stream {s} chunk {c}", per_chunk)
                 types = out["types"]
                 for k, v in out.items():
                     if v.is_floating_point() \
@@ -509,6 +889,13 @@ def phase_profile(tag: str, params, cfg) -> None:
                         bw_kbps=6000.0, cfg=cfg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    _print_profile(f"{tag}: one chunk {T}x{H_HD}x{W_HD}", prof, wall)
+
+
+def _print_profile(label: str, prof, wall: float, rows_shown: int = 12):
+    """Wall time, device busy time and share, device ops, the device time
+    by kernel and the host time by operator of one profiled window."""
+    import torch
     # the device-side events (kernels, copies, fills); the host ops that
     # launched them carry the same time and are left out
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
@@ -516,10 +903,11 @@ def phase_profile(tag: str, params, cfg) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
     n = sum(r[1] for r in rows)
-    print(f"[profile] {tag}: one chunk {T}x{H_HD}x{W_HD}: wall {wall:.1f} "
-          f"ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%, idle "
+    tag = label.split(":")[0]
+    print(f"[profile] {label}: wall {wall:.1f} ms, device busy {busy:.2f} "
+          f"ms ({100 * busy / wall:.1f}%, idle "
           f"{100 - 100 * busy / wall:.1f}%), {n} device ops")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
+    for ms, count, key in sorted(rows, reverse=True)[:rows_shown]:
         print(f"[profile]   {ms:8.3f} ms  {count:5d}x  {key[:90]}")
     # the host side: the operators' own CPU time, which is most of the wall
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
@@ -530,6 +918,43 @@ def phase_profile(tag: str, params, cfg) -> None:
           f"ms over {sum(r[1] for r in host)} host ops; the largest:")
     for ms, count, key in host[:10]:
         print(f"[profile]   host {ms:8.3f} ms  {count:5d}x  {key[:80]}")
+
+
+def phase_profile_lm() -> None:
+    """One llama3.2-1B prefill of 2x4096 tokens and one decode step under
+    torch.profiler, after an unprofiled warm-up of each, in a process of
+    its own (``--profile lm``)."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeCase, get_arch
+    from repro_torch.launch.steps import materialize
+    from repro_torch.models import transformer_lm as M
+    base = get_arch("llama3_2_1b")
+    arch = dataclasses.replace(base, cfg=dataclasses.replace(
+        base.cfg, attention_impl="pallas"))
+    cfg = arch.cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params, batch = materialize(g, arch, ShapeCase(
+        "prefill_4k", "prefill", batch=LM_BATCH, seq_len=LM_SEQ))
+    _, kv = M.prefill_step(params, cfg, batch["tokens"])
+    cache = _cache_from_prefill(cfg, kv, LM_SEQ + 4)
+    tok = batch["tokens"][:, -1:]
+    for i in range(2):
+        M.decode_step(params, cfg, cache, tok, LM_SEQ + i)
+    torch.cuda.synchronize()
+    for label, run in (
+            (f"lm prefill: {LM_BATCH}x{LM_SEQ} tokens",
+             lambda: M.prefill_step(params, cfg, batch["tokens"])),
+            (f"lm decode: one step of {LM_BATCH} requests",
+             lambda: M.decode_step(params, cfg, cache, tok, LM_SEQ + 2))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _print_profile(label, prof, wall, rows_shown=8)
 
 
 def phase_admit_all(params, cfg) -> None:
@@ -634,7 +1059,10 @@ def main(argv) -> int:
     params = init(torch.Generator().manual_seed(1), det_cfg)
     paths = path_configs(det_cfg)
     if argv[:1] == ["--profile"]:
-        phase_profile(argv[1], params, paths[argv[1]][0])
+        if argv[1] == "lm":
+            phase_profile_lm()
+        else:
+            phase_profile(argv[1], params, paths[argv[1]][0])
         return 0
 
     card = phase_card()
@@ -644,7 +1072,7 @@ def main(argv) -> int:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
-               check_roi_gather(g)]
+               check_roi_gather(g), *check_flash_attention(g)]
     for k in kernels:
         lib = "" if k["library_ms"] is None \
             else f", library {k['library_ms'] * 1e3:.1f} us"
@@ -657,16 +1085,27 @@ def main(argv) -> int:
         profile_in_child(tag)
     phase_admit_all(params, paths["roi"][0])
     launches["parity"] = phase_small_parity(params, det_cfg)
+    del params
+    launches["lm"] = phase_lm()
+    profile_in_child("lm")
+    launches["chatglm3"] = phase_chatglm3()
 
-    # each form's launches from the first path that runs it; the bf16
-    # qtransfer is on no path (the reference reaches it only from its
-    # kernel tests and benchmarks)
+    # each kernel's launches from the first path that runs it (the bf16
+    # qtransfer is on no path: the reference reaches it only from its
+    # kernel tests and benchmarks); the flash_attention forms share one
+    # counter, and each also gives its own launches on the path that runs
+    # that very form, if one does (form_path, form_launches)
     for k in kernels:
-        k["path"] = next((p for p, n in launches.items() if n.get(k["name"])),
-                         None)
+        k["path"] = next((p for p, n in launches.items()
+                          if n.get(k["name"])), None)
         k["launches"] = launches[k["path"]][k["name"]] if k["path"] else 0
-        if k["path"] is None and k["name"] != "qtransfer_bf16":
-            raise AssertionError(f"{k['name']} was launched on no path")
+        if "form_path" in k:
+            k["form_launches"] = launches[k["form_path"]][k["name"]] \
+                if k["form_path"] else 0
+    unlaunched = {k["name"] for k in kernels} \
+        - {name for n in launches.values() for name in n if n[name]}
+    if unlaunched - {"qtransfer_bf16"}:
+        raise AssertionError(f"launched on no path: {sorted(unlaunched)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,13 @@ def resolve_device(device=None) -> torch.device:
     ``torch.backends.cudnn.allow_tf32 = False``): the JAX reference
     computes the detector's convolutions in full f32, while cuDNN uses
     TF32 for f32 convolutions by default, which keeps about three decimal
-    digits and would break parity.
+    digits and would break parity.  And pins the sums of bf16 matmuls to
+    f32 (``allow_bf16_reduced_precision_reduction = False``): the JAX
+    reference accumulates its bf16 LM matmuls in f32, while cuBLAS may
+    otherwise reduce split-K partial sums in bf16.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():

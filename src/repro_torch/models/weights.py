@@ -1,4 +1,5 @@
-"""Carry TinyDetector weights across from the JAX reference."""
+"""Carry weights across from the JAX reference: the TinyDetector's and
+the decoder LM's."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,3 +26,17 @@ def detector_params_from_jax(params: dict, device=None) -> dict:
                              f"bias, got shape {a.shape}")
         out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return out
+
+
+def lm_params_from_jax(params: dict, device=None) -> dict:
+    """The reference's decoder-LM params (nested dict of numpy arrays,
+    bf16 or f32) -> the same nesting of bf16 tensors on the resolved
+    device, in the reference's layouts (``wq`` (L, d, H, Dh), ``wo`` (L,
+    H, Dh, d), ``embed`` (V, d), ...).  bf16 arrays (``ml_dtypes``'
+    dtype, which ``torch.from_numpy`` rejects) pass through an f32 copy: exact
+    both ways."""
+    dev = resolve_device(device)
+    return {name: lm_params_from_jax(value, dev) if isinstance(value, dict)
+            else torch.from_numpy(np.array(value, np.float32))
+            .to(torch.bfloat16).to(dev)
+            for name, value in params.items()}

@@ -15,7 +15,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    a 1024 window, cross Sq != Sk, non-causal, ragged, f32 inputs)
    against its plain PyTorch version on the card, at its path's shapes,
    with its time, the plain version's time and its bound (CUDA events,
-   median of 20 timed runs after warm-up);
+   median of 20 timed runs after warm-up); first a sweep of small bf16
+   flash_attention forms across the kernel's tile edges (lengths 1 to
+   257, windows 127 to 129, Sq != Sk, GQA 1/4/16, B=3, D=64 and 128),
+   checked and not timed;
 4. main path: ``roundtrip_chunk`` on 720x1280 sources, 30-frame chunks,
    ladder rung 2 (LR 352x640), full-width TinyDetector from the port's
    ``init``: 2 streams x 3 consecutive chunks.  Launch counters show the
@@ -124,7 +127,8 @@ def phase_build() -> None:
           f"into {build.BUILD_DIR}")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "warning" in line.lower():
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -400,6 +404,23 @@ FLASH_FORMS = [
     ("ragged S=1000", 1, 32, 8, 1000, 1000, 64, True, None, "bf16"),
     ("f32 inputs", 1, 32, 8, 1024, 1024, 64, True, None, "f32"),
 ]
+# small forms that cross the bf16 design's tiles (128 q rows a block, 64
+# a consumer warpgroup, 128 keys a K/V tile), checked against the plain
+# version and not timed: (label, B, H, Hk, Sq, Sk, D, causal, window)
+FLASH_SWEEP = [
+    *((f"S={n} D={d}", 1, 8, 2, n, n, d, True, None)
+      for n in (1, 127, 128, 129, 255, 257) for d in (64, 128)),
+    *((f"non-causal S={n} D={d}", 1, 8, 2, n, n, d, False, None)
+      for n in (127, 129, 257) for d in (64, 128)),
+    *((f"window {w} D={d}", 1, 8, 2, 515, 515, d, True, w)
+      for w in (127, 128, 129) for d in (64, 128)),
+    ("non-causal window 128", 1, 8, 2, 515, 515, 64, False, 128),
+    *((f"causal Sq={sq} Sk={sk} D={d}", 1, 8, 2, sq, sk, d, True, None)
+      for sq, sk in ((129, 300), (300, 129), (1, 257)) for d in (64, 128)),
+    *((f"GQA {16 // hk} D={d}", 1, 16, hk, 300, 300, d, True, None)
+      for hk in (16, 4, 1) for d in (64, 128)),
+    *((f"B=3 D={d}", 3, 8, 2, 257, 257, d, True, 200) for d in (64, 128)),
+]
 # the reference's absolute tolerances (tests/test_kernels.py:36), plus
 # 2^-8 of |value|: half a bf16 ulp, since above |o| = 4 one ulp of the
 # bf16 output (0.03125) exceeds 0.03 and a kernel that rounds p to bf16
@@ -417,6 +438,51 @@ LM_REL_TOL = 0.05
 LM_HELD_LAYERS = 2
 
 
+def _flash_inputs(g, B, H, Hk, Sq, Sk, D, dtype):
+    import torch
+    dev = torch.device("cuda")
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, Sq, H, D), (B, Sk, Hk, D), (B, Sk, Hk, D))]
+
+
+def _flash_excess(o, ref, dt) -> tuple[float, float]:
+    """(max|o - ref|, its largest excess over FLASH_TOL + 2^-8 |ref|)."""
+    d = (o.float() - ref.float()).abs()
+    excess = d - FLASH_TOL[dt] - FLASH_RTOL * ref.float().abs()
+    return float(d.max()), float(excess.max())
+
+
+def check_flash_sweep(g) -> None:
+    """The FLASH_SWEEP forms in bf16 against the plain version; raises
+    naming every form that disagrees (or is not finite)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    failed, worst = [], 0.0
+    for label, B, H, Hk, Sq, Sk, D, causal, window in FLASH_SWEEP:
+        q, k, v = _flash_inputs(g, B, H, Hk, Sq, Sk, D, torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+        o = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        err, excess = _flash_excess(o, ref, "bf16")
+        worst = max(worst, err)
+        if not excess <= 0:
+            bad = ((o.float() - ref.float()).abs() > FLASH_TOL["bf16"]
+                   + FLASH_RTOL * ref.float().abs())
+            rows = bad.any(-1).any(-1).nonzero()[:, 1]
+            failed.append(f"{label} (B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} "
+                          f"window={window}): max|d| {err:.3g}, rows "
+                          f"{rows.min().item()}..{rows.max().item()}, "
+                          f"{int(bad.sum())} values")
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention sweep: {len(FLASH_SWEEP)} bf16 forms "
+          f"across the tile edges, max|d| {worst:.3g} vs plain (tolerance "
+          f"{FLASH_TOL['bf16']} + 2^-8 |value|), {len(failed)} disagree")
+    if failed:
+        raise AssertionError("flash_attention disagrees with its plain "
+                             "version:\n" + "\n".join(failed))
+
+
 def check_flash_attention(g) -> list[dict]:
     """Each form against its plain version (``attention_ref`` in f32) on
     the card, with its time, the plain version's, and the library's: one
@@ -430,9 +496,7 @@ def check_flash_attention(g) -> list[dict]:
     out = []
     for label, B, H, Hk, Sq, Sk, D, causal, window, dt in FLASH_FORMS:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, Sk, Hk, D), generator=g, device=dev).to(dtype)
+        q, k, v = _flash_inputs(g, B, H, Hk, Sq, Sk, D, dtype)
         kw = dict(causal=causal, window=window)
         o = flash_attention(q, k, v, **kw)
         ref = flash_attention_plain(q, k, v, **kw)
@@ -440,10 +504,7 @@ def check_flash_attention(g) -> list[dict]:
         if o.dtype != dtype or o.shape != q.shape:
             raise AssertionError(f"flash_attention {label}: {o.dtype} "
                                  f"{tuple(o.shape)}")
-        d = (o.float() - ref.float()).abs()
-        err = float(d.max())
-        excess = float((d - FLASH_TOL[dt]
-                        - FLASH_RTOL * ref.float().abs()).max())
+        err, excess = _flash_excess(o, ref, dt)
         print(f"[kernels] flash_attention {label} B={B} H={H} Hk={Hk} "
               f"Sq={Sq} Sk={Sk} D={D} {dt}: max|d| {err:.3g} vs plain "
               f"(tolerance {FLASH_TOL[dt]} + 2^-8 |value|)")
@@ -451,6 +512,14 @@ def check_flash_attention(g) -> list[dict]:
             raise AssertionError(f"flash_attention {label} disagrees with "
                                  f"its plain version: {err}")
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+        # the wrapper's host time a call (checks, tensor maps, the launch),
+        # without waiting for the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            flash_attention(q, k, v, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                            reps=5, inner=1, warmup=1)
         q_pos = torch.arange(Sq, device=dev)[:, None]
@@ -475,7 +544,7 @@ def check_flash_attention(g) -> list[dict]:
             source=SOURCE + "flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:75",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=library,
+            bound_by=by, library_ms=library, host_ms=host_ms,
             shape=f"B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D} {dt}"
                   + (f" window={window}" if window else "")
                   + ("" if causal else " non-causal"),
@@ -892,6 +961,11 @@ def phase_profile(tag: str, params, cfg) -> None:
     _print_profile(f"{tag}: one chunk {T}x{H_HD}x{W_HD}", prof, wall)
 
 
+# the __global__ functions of the port's kernel sources
+PORT_KERNELS = ("motion_sad_kernel", "forward_quant_kernel", "inverse_kernel",
+                "qtransfer_kernel", "roi_gather_kernel", "flash_fwd_kernel")
+
+
 def _print_profile(label: str, prof, wall: float, rows_shown: int = 12):
     """Wall time, device busy time and share, device ops, the device time
     by kernel and the host time by operator of one profiled window."""
@@ -907,8 +981,13 @@ def _print_profile(label: str, prof, wall: float, rows_shown: int = 12):
     print(f"[profile] {label}: wall {wall:.1f} ms, device busy {busy:.2f} "
           f"ms ({100 * busy / wall:.1f}%, idle "
           f"{100 - 100 * busy / wall:.1f}%), {n} device ops")
-    for ms, count, key in sorted(rows, reverse=True)[:rows_shown]:
+    rows.sort(reverse=True)
+    for ms, count, key in rows[:rows_shown]:
         print(f"[profile]   {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+    # and the port's own kernels further down
+    for ms, count, key in rows[rows_shown:]:
+        if any(k in key for k in PORT_KERNELS):
+            print(f"[profile]   {ms:8.3f} ms  {count:5d}x  {key[:90]}")
     # the host side: the operators' own CPU time, which is most of the wall
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
@@ -1070,15 +1149,20 @@ def main(argv) -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
 
+    # the sweep draws from a generator of its own, so that the timed forms
+    # get the same inputs with or without it
+    check_flash_sweep(torch.Generator(device="cuda").manual_seed(1))
     g = torch.Generator(device="cuda").manual_seed(0)
     kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
                check_roi_gather(g), *check_flash_attention(g)]
     for k in kernels:
         lib = "" if k["library_ms"] is None \
             else f", library {k['library_ms'] * 1e3:.1f} us"
+        host = f", host {k['host_ms'] * 1e3:.1f} us a call" \
+            if "host_ms" in k else ""
         print(f"[kernels] {k['name']} ({k['shape']}): {k['ms'] * 1e3:.1f} us,"
               f" plain {k['plain_ms'] * 1e3:.1f} us{lib}, bound "
-              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']})")
+              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){host}")
 
     launches = run_paths(params, paths)
     for tag in paths:

@@ -5,7 +5,10 @@ Port of ``repro/kernels/flash_attention``.  Both take the model layout, q
 (B, Sq, H, D) and k/v (B, Sk, Hk, D), with GQA (query head h reads kv head
 h * Hk // H), a causal mask (k_pos <= q_pos, both counted from 0) and an
 optional sliding window (q_pos - k_pos < window).  The kernel is
-``kernels/csrc/flash_attention.cu``; ``flash_attention_plain`` is the
+``kernels/csrc/flash_attention.cu``: its bf16 forms are a Hopper design
+(TMA loads into a ring of K/V tiles, wgmma, a producer warpgroup and two
+consumer warpgroups), its f32 form an mma.sync one; both count as
+``"flash_attention"`` launches.  ``flash_attention_plain`` is the
 reference's oracle ``ref.attention_ref`` in PyTorch (f32 math on the
 inputs as given), taken for CPU tensors and used as the kernel's
 reference on the card.  The kernel rounds q, k, v and the softmax

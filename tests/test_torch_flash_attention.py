@@ -90,3 +90,62 @@ def test_flash_attention_cpu_takes_the_plain_version_and_checks_shapes():
         flash_attention(tq, tk, tv[:, :16])
     with pytest.raises(ValueError):
         flash_attention(tq, tk, tv, window=0)
+
+
+# Lengths and windows at the card kernel's tile edges (its bf16 design
+# takes 128 q rows a block, 64 a consumer warpgroup, 128 keys a K/V tile).
+# chip_smoke.py holds the kernel against the plain version at these
+# shapes, so the plain version is held here against ``attention_ref`` on
+# the same numpy inputs: 1e-5 absolute in f32 (both take f32 math); in
+# bf16 the two f32 results round to bf16 apart by at most one bf16 step,
+# 2^-7 of |value|.
+EDGE_LENGTHS = (1, 127, 128, 129, 255, 257)
+
+
+def _hold_plain(B, H, Hk, Sq, Sk, D, causal, window, dtype, seed=3):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(seed, B, H, Hk, Sq, Sk, D, dtype)
+    ours = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert ours.dtype == tq.dtype and ours.shape == tq.shape
+    ref = _ref(jq, jk, jv, causal, window)
+    if dtype == "f32":
+        np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(ours.float().numpy(), ref, atol=1e-6,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", ("f32", "bf16"))
+@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("S", EDGE_LENGTHS)
+def test_flash_attention_plain_at_tile_edge_lengths(S, D, dtype):
+    _hold_plain(1, 4, 1, S, S, D, True, None, dtype)
+
+
+@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("window", (127, 128, 129))
+def test_flash_attention_plain_at_tile_edge_windows(window, D):
+    _hold_plain(1, 4, 2, 259, 259, D, True, window, "f32")
+
+
+@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("window", (127, 128, 129))
+def test_flash_attention_plain_at_tile_edge_windows_bf16(window, D):
+    _hold_plain(1, 4, 2, 259, 259, D, True, window, "bf16")
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (129, 300, True, None), (300, 129, True, None), (1, 257, True, None),
+    (257, 257, False, 128), (129, 129, False, None)])
+def test_flash_attention_plain_cross_and_non_causal_edges(Sq, Sk, causal,
+                                                          window):
+    _hold_plain(1, 4, 2, Sq, Sk, 64, causal, window, "f32")
+
+
+@pytest.mark.parametrize("D", (64, 128))
+@pytest.mark.parametrize("Hk", (16, 4, 1))
+def test_flash_attention_plain_gqa_ratios(Hk, D):
+    _hold_plain(1, 16, Hk, 129, 129, D, True, None, "f32")
+
+
+def test_flash_attention_plain_three_requests():
+    _hold_plain(3, 4, 2, 257, 257, 128, True, 200, "f32")

@@ -15,10 +15,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    a 1024 window, cross Sq != Sk, non-causal, ragged, f32 inputs)
    against its plain PyTorch version on the card, at its path's shapes,
    with its time, the plain version's time and its bound (CUDA events,
-   median of 20 timed runs after warm-up); first a sweep of small bf16
-   flash_attention forms across the kernel's tile edges (lengths 1 to
-   257, windows 127 to 129, Sq != Sk, GQA 1/4/16, B=3, D=64 and 128),
-   checked and not timed;
+   median of 20 timed runs after warm-up); the motion_sad forms also
+   with their device time a launch (a CUDA graph of 20 launches) and the
+   wrapper's host time a call, the diamond forms timed twice in turns.
+   First two sweeps, checked and not timed: small bf16 flash_attention
+   forms across the kernel's tile edges (lengths 1 to 257, windows 127
+   to 129, Sq != Sk, GQA 1/4/16, B=3, D=64 and 128), and the four
+   motion_sad forms across shapes (16x16 to 480x848, nbx 1 to 53) and
+   radii (0 to 16, and 47 and 67) on integer, float, constant and 4-px
+   periodic frames, plus a T=3 batched call;
 4. main path: ``roundtrip_chunk`` on 720x1280 sources, 30-frame chunks,
    ladder rung 2 (LR 352x640), full-width TinyDetector from the port's
    ``init``: 2 streams x 3 consecutive chunks.  Launch counters show the
@@ -132,7 +137,7 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def _sad_f64(cur, ref, by, bx, dy, dx, radius):
+def _sad_f64(cur, ref, by, bx, dy, dx):
     """One block's SAD at offset (dy, dx) in f64 on the host, against the
     edge-padded reference."""
     import numpy as np
@@ -143,31 +148,200 @@ def _sad_f64(cur, ref, by, bx, dy, dx, radius):
     return float(np.abs(c - ref[np.ix_(ys, xs)].astype(np.float64)).sum())
 
 
+# the motion search's sweep, checked and not timed: small shapes at every
+# radius below, the ladder's LR shapes (nbx 20, 26, 53) at R=8, and the
+# widest radii the kernel takes at one small shape
+MOTION_SMALL = ((16, 16), (16, 48), (48, 16), (32, 80))
+MOTION_RADII = (0, 1, 2, 4, 7, 8, 9, 16)
+MOTION_LARGE = ((176, 320), (240, 416), (480, 848))
+MOTION_WIDE = ((32, 80, 47), (32, 80, 67))
+
+
+def _motion_forms():
+    import torch
+    return (("exhaustive", None, 96), ("exhaustive", torch.bfloat16, 96),
+            ("diamond", None, 131), ("diamond", torch.bfloat16, 131))
+
+
+def _motion_frames(g, h, w, edge_cases: bool = True):
+    """A frame and its shifted, noisier successor, as (cur, ref): float
+    and 8-bit integer (exact in bf16); with ``edge_cases``, also a
+    constant pair and a pair whose columns repeat every 4 px (dense exact
+    ties)."""
+    import torch
+    dev = torch.device("cuda")
+    base = torch.rand((h + 32, w + 32), generator=g, device=dev) * 255
+    ref = base[16:16 + h, 16:16 + w].contiguous()
+    cur = (base[13:13 + h, 18:18 + w]
+           + torch.randn((h, w), generator=g, device=dev) * 3).contiguous()
+    frames = {"integer": (cur.round().clamp(0, 255), ref.round()),
+              "float": (cur, ref)}
+    if edge_cases:
+        cols = torch.randint(0, 256, (h + 3, 4), generator=g,
+                             device=dev).float()
+        periodic = cols.repeat(1, w // 4)
+        frames["constant"] = (torch.full((h, w), 77.0, device=dev),) * 2
+        frames["periodic"] = (periodic[3:].contiguous(),
+                              periodic[:h].contiguous())
+    return frames
+
+
+def _hold_motion(where, mv, sad, mv_p, sad_p, cur, ref, dtype, exact):
+    """The kernel's (mv, sad) against the plain version's: exact, or on
+    float frames a differing MV must have the plain pick's SAD in f64 (to
+    1e-5 relative) and equal MVs SADs within 1e-5 relative.  Returns
+    (MVs that differ, max |dsad| where the MVs agree)."""
+    import torch
+    diff = (mv != mv_p).any(-1)
+    n_diff = int(diff.sum())
+    if exact:
+        if n_diff or not torch.equal(sad, sad_p):
+            raise AssertionError(
+                f"{where}: {n_diff} MVs differ, max |dsad| "
+                f"{float((sad - sad_p).abs().max())}")
+        return 0, 0.0
+    store = dtype or torch.float32
+    c, r = (x.to(store).float().cpu().numpy() for x in (cur, ref))
+    for by, bx in diff.nonzero().tolist():
+        a = _sad_f64(c, r, by, bx, *mv[by, bx].tolist())
+        b = _sad_f64(c, r, by, bx, *mv_p[by, bx].tolist())
+        if abs(a - b) > 1e-5 * max(abs(a), abs(b)):
+            raise AssertionError(
+                f"{where}: block ({by},{bx}) picked {mv[by, bx].tolist()} "
+                f"(f64 SAD {a}) where the plain version picked "
+                f"{mv_p[by, bx].tolist()} ({b})")
+    same = ~diff
+    rel = ((sad - sad_p).abs()[same] / sad_p.abs()[same].clamp(min=1e-6))
+    if rel.numel() and float(rel.max()) > 1e-5:
+        raise AssertionError(f"{where}: SAD rel err {float(rel.max())}")
+    return n_diff, float((sad - sad_p).abs()[same].max()) if rel.numel() \
+        else 0.0
+
+
+def check_motion_sad_sweep(g) -> None:
+    """Every form of the search against its plain version across the
+    sweep's shapes and radii, on integer, float, constant and 4-px
+    periodic frames: integer-valued frames exact, bf16 equal to f32 on
+    them, a constant frame giving (-R, -R) (exhaustive) or (0, 0)
+    (diamond) with SAD 0; then one T=3 batched call equal to three single
+    calls.  Checked, not timed."""
+    import torch
+    from repro_torch.kernels.motion_sad.ops import (launch_name, motion_sad,
+                                                    motion_sad_diamond_plain,
+                                                    motion_sad_plain)
+    cases = [(h, w, r) for h, w in MOTION_SMALL for r in MOTION_RADII]
+    cases += [(h, w, RADIUS) for h, w in MOTION_LARGE] + list(MOTION_WIDE)
+    n_calls, n_float_diff = 0, 0
+    for h, w, radius in cases:
+        frames = _motion_frames(g, h, w)
+        for search, dtype, _ in _motion_forms():
+            name = launch_name(search, dtype)
+            plain = motion_sad_diamond_plain if search == "diamond" \
+                else motion_sad_plain
+            for label, (cur, ref) in frames.items():
+                where = f"{name} {label} {h}x{w} R={radius}"
+                mv, sad = motion_sad(cur, ref, radius, dtype=dtype,
+                                     search=search)
+                mv_p, sad_p = plain(cur, ref, radius, dtype=dtype)
+                n, _ = _hold_motion(where, mv, sad, mv_p, sad_p, cur, ref,
+                                    dtype, exact=label != "float")
+                n_calls += 1
+                n_float_diff += n
+                if label == "constant":
+                    pick = -radius if search == "exhaustive" else 0
+                    if not (bool((mv == pick).all())
+                            and bool((sad == 0).all())):
+                        raise AssertionError(f"{where}: not ({pick}, {pick})"
+                                             " with SAD 0")
+                if dtype is not None and label != "float":
+                    mv32, sad32 = motion_sad(cur, ref, radius, search=search)
+                    if not (torch.equal(mv, mv32) and torch.equal(sad, sad32)):
+                        raise AssertionError(f"{where}: bf16 differs from f32")
+    # the batch: T=3 frames in one launch, each equal to its own launch
+    cur, ref = (torch.stack(x) for x in zip(*(
+        _motion_frames(g, 240, 416, edge_cases=False)["float"]
+        for _ in range(3))))
+    for search, dtype, _ in _motion_forms():
+        mv, sad = motion_sad(cur, ref, RADIUS, dtype=dtype, search=search)
+        for t in range(3):
+            mv1, sad1 = motion_sad(cur[t], ref[t], RADIUS, dtype=dtype,
+                                   search=search)
+            if not (torch.equal(mv[t], mv1) and torch.equal(sad[t], sad1)):
+                raise AssertionError(f"{launch_name(search, dtype)}: frame "
+                                     f"{t} of a T=3 call differs from its "
+                                     "own call")
+    torch.cuda.synchronize()
+    print(f"[kernels] motion_sad sweep: {len(cases)} (shape, R) cases x 4 "
+          f"forms x 4 frame kinds = {n_calls} calls against the plain "
+          f"version (shapes {', '.join(f'{h}x{w}' for h, w in MOTION_SMALL)}"
+          f" at R={'/'.join(map(str, MOTION_RADII))}; "
+          f"{', '.join(f'{h}x{w}' for h, w in MOTION_LARGE)} at R={RADIUS}; "
+          f"{', '.join(f'{h}x{w} R={r}' for h, w, r in MOTION_WIDE)}): "
+          f"integer, constant and periodic frames exact, bf16 == f32 on "
+          f"them; float frames {n_float_diff} MVs differ, each an f64 tie; "
+          f"T=3 batch == 3 single calls")
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time a call of ``fn``: a CUDA graph of ``n`` back-to-back
+    calls, replayed (median of ``reps``, CUDA events), so that the host
+    does not pace the launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def host_ms(fn, n: int = 10) -> float:
+    """The host's time a call of ``fn`` (checks, allocation, the launch),
+    without waiting for the card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return dt
+
+
 def check_motion_sad(g) -> list[dict]:
     """Each form of the search against its plain version at the main
     path's LR shape: MVs and SADs exact on integer frames; on float frames
-    a differing MV must have the plain pick's SAD in f64."""
+    a differing MV must have the plain pick's SAD in f64; each diamond
+    form's SAD never below its exhaustive form's, bit for bit.  Timed by
+    CUDA events over back-to-back wrapper calls, by a CUDA graph of the
+    launches (device time a launch) and by the host (wrapper time a
+    call); the diamond forms twice, in turns."""
     import torch
     from repro_torch.codec.motion import diamond_num_evals
     from repro_torch.kernels.motion_sad.ops import (launch_name, motion_sad,
                                                     motion_sad_diamond_plain,
                                                     motion_sad_plain)
     h, w = 352, 640
-    dev = torch.device("cuda")
-    base = torch.rand((h + 32, w + 32), generator=g, device=dev) * 255
-    # a frame and its shifted, noisier successor, integer- and float-valued
-    cases = {}
-    ref_f = base[16:16 + h, 16:16 + w].contiguous()
-    cur_f = (base[13:13 + h, 18:18 + w]
-             + torch.randn((h, w), generator=g, device=dev) * 3).contiguous()
-    # 8-bit integers, which bf16 holds exactly
-    cases["integer"] = (cur_f.round().clamp(0, 255), ref_f.round())
-    cases["float"] = (cur_f, ref_f)
+    cases = _motion_frames(g, h, w, edge_cases=False)
     nb = (h // 16) * (w // 16)
-    out, integer_f32 = [], {}
-    for search, dtype, line in (
-            ("exhaustive", None, 159), ("exhaustive", torch.bfloat16, 159),
-            ("diamond", None, 131), ("diamond", torch.bfloat16, 131)):
+    out, integer_f32, float_sad = [], {}, {}
+    for search, dtype, line in _motion_forms():
         name = launch_name(search, dtype)
         plain = motion_sad_diamond_plain if search == "diamond" \
             else motion_sad_plain
@@ -176,13 +350,10 @@ def check_motion_sad(g) -> list[dict]:
             mv, sad = motion_sad(cur, ref, RADIUS, dtype=dtype, search=search)
             mv_p, sad_p = plain(cur, ref, RADIUS, dtype=dtype)
             torch.cuda.synchronize()
-            diff = (mv != mv_p).any(-1)
-            n_diff = int(diff.sum())
+            n_diff, err = _hold_motion(f"{name} {label}", mv, sad, mv_p,
+                                       sad_p, cur, ref, dtype,
+                                       exact=label == "integer")
             if label == "integer":
-                if n_diff or not torch.equal(sad, sad_p):
-                    raise AssertionError(
-                        f"{name} integer input: {n_diff} MVs differ, max "
-                        f"|dsad| {float((sad - sad_p).abs().max())}")
                 # bf16 holds 8-bit integers exactly: it must equal f32
                 if dtype is None:
                     integer_f32[search] = (mv, sad)
@@ -191,29 +362,11 @@ def check_motion_sad(g) -> list[dict]:
                     raise AssertionError(f"{name} differs from its f32 form "
                                          "on 8-bit integer frames")
             else:
-                store = dtype or torch.float32
-                c, r = (x.to(store).float().cpu().numpy() for x in (cur, ref))
-                for by, bx in diff.nonzero().tolist():
-                    a = _sad_f64(c, r, by, bx, *mv[by, bx].tolist(), RADIUS)
-                    b = _sad_f64(c, r, by, bx, *mv_p[by, bx].tolist(), RADIUS)
-                    if abs(a - b) > 1e-5 * max(abs(a), abs(b)):
-                        raise AssertionError(
-                            f"{name} float input: block ({by},{bx}) picked "
-                            f"{mv[by, bx].tolist()} (f64 SAD {a}) where the "
-                            f"plain version picked {mv_p[by, bx].tolist()} "
-                            f"({b})")
-                same = ~diff
-                rel = ((sad - sad_p).abs()[same]
-                       / sad_p.abs()[same].clamp(min=1e-6)).max()
-                if float(rel) > 1e-5:
-                    raise AssertionError(f"{name} float SAD rel err {rel}")
-            err = float((sad - sad_p).abs()[~diff].max())
+                float_sad[search, dtype] = sad
             max_err = max(max_err, err)
             print(f"[kernels] {name} {label:7s} {h}x{w} R={RADIUS}: "
                   f"{n_diff} MVs differ, max |dsad| (same MV) {err:.3g}")
         cur, ref = (x.to(dtype or torch.float32) for x in cases["float"])
-        ms = cuda_ms(lambda: motion_sad(cur, ref, RADIUS, dtype=dtype,
-                                        search=search))
         plain_ms = cuda_ms(lambda: plain(cur, ref, RADIUS, dtype=dtype),
                            reps=5, inner=1, warmup=1)
         evals = (2 * RADIUS + 1) ** 2 if search == "exhaustive" \
@@ -225,8 +378,30 @@ def check_motion_sad(g) -> list[dict]:
             name=name, mode=f"{search} {'bf16' if dtype else 'f32'}",
             route="cuda", source=SOURCE + "motion_sad.cu",
             replaces=f"src/repro/kernels/motion_sad/kernel.py:{line}",
-            max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=None, shape=f"{h}x{w} R={RADIUS}"))
+            max_abs_err=max_err, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, shape=f"{h}x{w} R={RADIUS}",
+            inputs=(cur, ref, search, dtype)))
+    for dtype in (None, torch.bfloat16):
+        d, e = float_sad["diamond", dtype], float_sad["exhaustive", dtype]
+        if not bool((d >= e).all()):
+            raise AssertionError(f"diamond {dtype} SAD below the exhaustive "
+                                 f"one at {int((d < e).sum())} blocks")
+    print(f"[kernels] motion_sad {h}x{w} R={RADIUS} float frames: each "
+          "diamond form's SAD >= its exhaustive form's at every block, bit "
+          "for bit")
+    # the timings: the exhaustive forms once, the diamond forms twice, in
+    # turns
+    for k in out[:2] + out[2:] + out[2:]:
+        cur, ref, search, dtype = k["inputs"]
+
+        def call():
+            return motion_sad(cur, ref, RADIUS, dtype=dtype, search=search)
+        times = (cuda_ms(call), graph_ms(call), host_ms(call))
+        for key, v in zip(("ms", "device_ms", "host_ms"), times):
+            k.setdefault(f"{key}_turns", []).append(v)
+            k[key] = k[f"{key}_turns"][0]
+    for k in out:
+        del k["inputs"]
     return out
 
 
@@ -512,14 +687,8 @@ def check_flash_attention(g) -> list[dict]:
             raise AssertionError(f"flash_attention {label} disagrees with "
                                  f"its plain version: {err}")
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
-        # the wrapper's host time a call (checks, tensor maps, the launch),
-        # without waiting for the card
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            flash_attention(q, k, v, **kw)
-        host_ms = (time.perf_counter() - t0) * 1e3 / 10
-        torch.cuda.synchronize()
+        # the wrapper's host time a call: checks, tensor maps, the launch
+        host = host_ms(lambda: flash_attention(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
                            reps=5, inner=1, warmup=1)
         q_pos = torch.arange(Sq, device=dev)[:, None]
@@ -544,7 +713,7 @@ def check_flash_attention(g) -> list[dict]:
             source=SOURCE + "flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:75",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=library, host_ms=host_ms,
+            bound_by=by, library_ms=library, host_ms=host,
             shape=f"B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D} {dt}"
                   + (f" window={window}" if window else "")
                   + ("" if causal else " non-causal"),
@@ -962,7 +1131,8 @@ def phase_profile(tag: str, params, cfg) -> None:
 
 
 # the __global__ functions of the port's kernel sources
-PORT_KERNELS = ("motion_sad_kernel", "forward_quant_kernel", "inverse_kernel",
+PORT_KERNELS = ("motion_sad_exhaustive_kernel", "motion_sad_diamond_kernel",
+                "forward_quant_kernel", "inverse_kernel",
                 "qtransfer_kernel", "roi_gather_kernel", "flash_fwd_kernel")
 
 
@@ -1152,6 +1322,7 @@ def main(argv) -> int:
     # the sweep draws from a generator of its own, so that the timed forms
     # get the same inputs with or without it
     check_flash_sweep(torch.Generator(device="cuda").manual_seed(1))
+    check_motion_sad_sweep(torch.Generator(device="cuda").manual_seed(2))
     g = torch.Generator(device="cuda").manual_seed(0)
     kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
                check_roi_gather(g), *check_flash_attention(g)]
@@ -1160,9 +1331,16 @@ def main(argv) -> int:
             else f", library {k['library_ms'] * 1e3:.1f} us"
         host = f", host {k['host_ms'] * 1e3:.1f} us a call" \
             if "host_ms" in k else ""
+        device = f", device {k['device_ms'] * 1e3:.1f} us a launch (CUDA " \
+            "graph)" if "device_ms" in k else ""
+        turns = "" if len(k.get("ms_turns", ())) < 2 else (
+            "; again: " + ", ".join(
+                f"{k[key][1] * 1e3:.1f}" for key in
+                ("ms_turns", "device_ms_turns", "host_ms_turns")) + " us")
         print(f"[kernels] {k['name']} ({k['shape']}): {k['ms'] * 1e3:.1f} us,"
               f" plain {k['plain_ms'] * 1e3:.1f} us{lib}, bound "
-              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){host}")
+              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){device}{host}"
+              f"{turns}")
 
     launches = run_paths(params, paths)
     for tag in paths:

@@ -71,10 +71,10 @@ def block_sad_diamond(cur, ref, radius: int = 8, *, dtype=None):
 
 def block_sad(cur, ref, radius: int = 8, *, dtype=None,
               search: str = "exhaustive"):
-    """Returns (mv (nby, nbx, 2) int32, sad (nby, nbx) f32); cur/ref (H, W)
-    with H, W multiples of 16.  ``dtype`` is the storage dtype (None for
-    f32, or torch.bfloat16); ``search`` is "exhaustive" or "diamond"
-    (ValueError otherwise)."""
+    """Returns (mv (..., nby, nbx, 2) int32, sad (..., nby, nbx) f32);
+    cur/ref (H, W) or (T, H, W) with H, W multiples of 16.  ``dtype`` is
+    the storage dtype (None for f32, or torch.bfloat16); ``search`` is
+    "exhaustive" or "diamond" (ValueError otherwise)."""
     return motion_sad(cur.contiguous(), ref.contiguous(), radius,
                       dtype=dtype, search=search)
 

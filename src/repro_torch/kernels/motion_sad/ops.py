@@ -3,14 +3,15 @@ PyTorch versions.
 
 Port of ``repro/kernels/motion_sad``: the exhaustive and the diamond
 search, each in f32 or bf16 storage (inputs rounded to bf16, every SAD
-summed in f32).  The kernel is ``kernels/csrc/motion_sad.cu``;
-``motion_sad_plain`` and ``motion_sad_diamond_plain`` are the same
-functions in PyTorch, taken for CPU tensors and used as the kernel's
-reference on the card.
+summed in f32), over one frame (H, W) or a batch (T, H, W).  The kernel
+is ``kernels/csrc/motion_sad.cu``; ``motion_sad_plain`` and
+``motion_sad_diamond_plain`` are the same functions in PyTorch, taken for
+CPU tensors and used as the kernel's reference on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,8 @@ from repro_torch.kernels import build
 
 MB = 16
 SEARCHES = ("exhaustive", "diamond")
+# the largest search radius the wrapper takes
+MAX_RADIUS = 67
 f32 = torch.float32
 
 
@@ -33,6 +36,19 @@ def diamond_steps(radius: int) -> tuple:
         steps.append(s)
         s //= 2
     return tuple(steps)
+
+
+def _batched(plain):
+    """A plain search over one (H, W) frame, taking (T, H, W) frames too:
+    one frame at a time, the results stacked."""
+    @functools.wraps(plain)
+    def search(cur, ref, radius: int = 8, *, dtype=None):
+        if cur.dim() == 2:
+            return plain(cur, ref, radius, dtype=dtype)
+        mvs, sads = zip(*(plain(c, r, radius, dtype=dtype)
+                          for c, r in zip(cur, ref)))
+        return torch.stack(mvs), torch.stack(sads)
+    return search
 
 
 def _windows(cur, ref, radius: int, dtype):
@@ -51,11 +67,13 @@ def _windows(cur, ref, radius: int, dtype):
     return curb, wins
 
 
+@_batched
 def motion_sad_plain(cur, ref, radius: int = 8, *, dtype=None):
     """Exhaustive search, per macroblock (``repro.codec.motion.block_sad``):
     each block's window is cut once, candidates run dy-major and a strict
     ``<`` keeps the first of equal SADs.  Returns (mv (nby, nbx, 2) int32
-    (dy, dx), sad (nby, nbx) f32)."""
+    (dy, dx), sad (nby, nbx) f32); over (T, H, W) frames, each with a
+    leading T."""
     curb, wins = _windows(cur, ref, radius, dtype)
     side = 2 * radius + 1
     best_sad = torch.full(curb.shape[:2], float("inf"), dtype=f32,
@@ -74,6 +92,7 @@ def motion_sad_plain(cur, ref, radius: int = 8, *, dtype=None):
     return mv.to(torch.int32), best_sad
 
 
+@_batched
 def motion_sad_diamond_plain(cur, ref, radius: int = 8, *, dtype=None):
     """Diamond search (``repro.codec.motion.block_sad_diamond``): SAD at
     (0, 0), then for each step of ``diamond_steps(radius)`` the 3x3
@@ -111,8 +130,7 @@ def motion_sad_diamond_plain(cur, ref, radius: int = 8, *, dtype=None):
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P, _P, _P]
+_ARGTYPES = [_P, _P, *[ctypes.c_int] * 6, _P, _P, _P]
 
 
 def launch_name(search: str = "exhaustive", dtype=None) -> str:
@@ -126,19 +144,24 @@ def launch_name(search: str = "exhaustive", dtype=None) -> str:
 
 def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
                search: str = "exhaustive"):
-    """cur/ref: (H, W), H and W multiples of 16 -> (mv, sad) as in
+    """cur/ref: (H, W) or (T, H, W), H and W multiples of 16 -> (mv (...,
+    nby, nbx, 2) int32 (dy, dx), sad (..., nby, nbx) f32) as in
     :func:`motion_sad_plain`.  ``search`` is "exhaustive" or "diamond";
-    ``dtype`` is the storage dtype (None for f32, or torch.bfloat16).
-    CPU tensors take the plain versions; CUDA tensors launch the kernel."""
+    ``dtype`` is the storage dtype (None for f32, or torch.bfloat16);
+    0 <= ``radius`` <= MAX_RADIUS.  CPU tensors take the plain versions;
+    CUDA tensors launch the kernel, all T frames at once."""
     if search not in SEARCHES:
         raise ValueError(f"unknown search strategy {search!r} "
                          f"(expected one of {SEARCHES})")
     store = build.storage_dtype(dtype)
-    if cur.shape != ref.shape or cur.dim() != 2 \
-            or cur.shape[0] % MB or cur.shape[1] % MB:
-        raise ValueError(f"cur/ref must be equal (H, W) with H, W multiples "
-                         f"of {MB}; got {tuple(cur.shape)}, "
-                         f"{tuple(ref.shape)}")
+    if cur.shape != ref.shape or cur.dim() not in (2, 3) \
+            or 0 in cur.shape or cur.shape[-2] % MB or cur.shape[-1] % MB:
+        raise ValueError(f"cur/ref must be equal, non-empty (H, W) or (T, "
+                         f"H, W) with H, W multiples of {MB}; got "
+                         f"{tuple(cur.shape)}, {tuple(ref.shape)}")
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"search radius must be in [0, {MAX_RADIUS}], got "
+                         f"{radius}")
     if cur.device.type == "cpu":
         plain = motion_sad_diamond_plain if search == "diamond" \
             else motion_sad_plain
@@ -148,13 +171,14 @@ def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
     cur, ref = (x.to(store).contiguous() for x in (cur, ref))
     for name, t in (("cur", cur), ("ref", ref)):
         build.check_cuda_tensor(name, t, store, cur.device)
-    H, W = cur.shape
-    mv = torch.empty((H // MB, W // MB, 2), dtype=torch.int32,
+    *lead, H, W = cur.shape
+    frames = lead[0] if lead else 1
+    mv = torch.empty((*lead, H // MB, W // MB, 2), dtype=torch.int32,
                      device=cur.device)
-    sad = torch.empty((H // MB, W // MB), dtype=f32, device=cur.device)
+    sad = torch.empty((*lead, H // MB, W // MB), dtype=f32, device=cur.device)
     fn = build.kernel_function("motion_sad", "motion_sad_launch", _ARGTYPES)
     build.launch(launch_name(search, dtype), fn, build.ptr(cur),
-                 build.ptr(ref), H, W, radius, int(search == "diamond"),
-                 int(store == torch.bfloat16), build.ptr(mv), build.ptr(sad),
-                 build.stream_ptr(cur.device))
+                 build.ptr(ref), frames, H, W, radius,
+                 int(search == "diamond"), int(store == torch.bfloat16),
+                 build.ptr(mv), build.ptr(sad), build.stream_ptr(cur.device))
     return mv, sad

@@ -10,20 +10,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build: compiles the port's CUDA kernels (``src/repro_torch/kernels/csrc``)
    with nvcc, one process per source;
 3. kernels: each kernel form (motion_sad exhaustive/diamond x f32/bf16,
-   blockdct forward and inverse, qtransfer f32 and bf16, roi_gather, and
-   seven flash_attention forms: llama3.2-1B's and chatglm3-6B's heads,
-   a 1024 window, cross Sq != Sk, non-causal, ragged, f32 inputs)
-   against its plain PyTorch version on the card, at its path's shapes,
-   with its time, the plain version's time and its bound (CUDA events,
-   median of 20 timed runs after warm-up); the motion_sad forms also
-   with their device time a launch (a CUDA graph of 20 launches) and the
-   wrapper's host time a call, the diamond forms timed twice in turns.
-   First two sweeps, checked and not timed: small bf16 flash_attention
-   forms across the kernel's tile edges (lengths 1 to 257, windows 127
-   to 129, Sq != Sk, GQA 1/4/16, B=3, D=64 and 128), and the four
-   motion_sad forms across shapes (16x16 to 480x848, nbx 1 to 53) and
-   radii (0 to 16, and 47 and 67) on integer, float, constant and 4-px
-   periodic frames, plus a T=3 batched call;
+   blockdct forward at the anchor and LR shapes and its inverse,
+   qtransfer f32 at the quality transfer's and the motion compensation's
+   shapes and bf16, roi_gather, and seven flash_attention forms:
+   llama3.2-1B's and chatglm3-6B's heads, a 1024 window, cross Sq != Sk,
+   non-causal, ragged, f32 inputs) against its plain PyTorch version on
+   the card, at its path's shapes, with its time, the plain version's
+   time and its bound (CUDA events, median of 20 timed runs after
+   warm-up); the motion_sad, blockdct and qtransfer forms also with their
+   device time a launch (a CUDA graph of 20 launches) and the wrapper's
+   host time a call, the diamond forms timed twice in turns.  First four
+   sweeps, checked and not timed: small bf16 flash_attention forms across
+   the kernel's tile edges (lengths 1 to 257, windows 127 to 129, Sq !=
+   Sk, GQA 1/4/16, B=3, D=64 and 128); the four motion_sad forms across
+   shapes (16x16 to 480x848, nbx 1 to 53) and radii (0 to 16, and 47 and
+   67) on integer, float, constant and 4-px periodic frames, plus a T=3
+   batched call and a radius past the kernel's, which must raise; blockdct
+   in its raster and block forms over 1, 2 and 30 frames from 8x8 to
+   352x640 (odd tile counts a row) at both quality tables; and qtransfer
+   in every mode with and without a residual, widths 16 to 336 (not
+   multiples of 64), |mv| up to 120;
 4. main path: ``roundtrip_chunk`` on 720x1280 sources, 30-frame chunks,
    ladder rung 2 (LR 352x640), full-width TinyDetector from the port's
    ``init``: 2 streams x 3 consecutive chunks.  Launch counters show the
@@ -226,7 +232,8 @@ def check_motion_sad_sweep(g) -> None:
     (diamond) with SAD 0; then one T=3 batched call equal to three single
     calls.  Checked, not timed."""
     import torch
-    from repro_torch.kernels.motion_sad.ops import (launch_name, motion_sad,
+    from repro_torch.kernels.motion_sad.ops import (MAX_RADIUS, launch_name,
+                                                    motion_sad,
                                                     motion_sad_diamond_plain,
                                                     motion_sad_plain)
     cases = [(h, w, r) for h, w in MOTION_SMALL for r in MOTION_RADII]
@@ -270,7 +277,18 @@ def check_motion_sad_sweep(g) -> None:
                 raise AssertionError(f"{launch_name(search, dtype)}: frame "
                                      f"{t} of a T=3 call differs from its "
                                      "own call")
+    # the kernel's radius limit: past it a CUDA tensor raises (the plain
+    # versions on CPU tensors take any radius, as the reference does)
+    for search in ("exhaustive", "diamond"):
+        try:
+            motion_sad(cur[0], ref[0], MAX_RADIUS + 1, search=search)
+        except ValueError:
+            continue
+        raise AssertionError(f"motion_sad {search} took R={MAX_RADIUS + 1} "
+                             "on CUDA tensors")
     torch.cuda.synchronize()
+    print(f"[kernels] motion_sad on CUDA tensors at R={MAX_RADIUS + 1} > "
+          f"MAX_RADIUS: both searches raise ValueError")
     print(f"[kernels] motion_sad sweep: {len(cases)} (shape, R) cases x 4 "
           f"forms x 4 frame kinds = {n_calls} calls against the plain "
           f"version (shapes {', '.join(f'{h}x{w}' for h, w in MOTION_SMALL)}"
@@ -313,15 +331,18 @@ def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
 
 def host_ms(fn, n: int = 10) -> float:
     """The host's time a call of ``fn`` (checks, allocation, the launch),
-    without waiting for the card."""
+    without waiting for the card: the median of ``n`` calls after one
+    more, so that an allocator's first cudaMalloc does not count."""
     import torch
+    fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for _ in range(n):
+        t0 = time.perf_counter()
         fn()
-    dt = (time.perf_counter() - t0) * 1e3 / n
+        times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    return dt
+    return statistics.median(times)
 
 
 def check_motion_sad(g) -> list[dict]:
@@ -405,114 +426,293 @@ def check_motion_sad(g) -> list[dict]:
     return out
 
 
-def check_blockdct(g) -> list[dict]:
+def _timed(fn) -> dict:
+    """A kernel form's times: CUDA events over back-to-back wrapper calls
+    (``ms``), its device time a launch from a CUDA graph (``device_ms``),
+    and the wrapper's host time a call (``host_ms``)."""
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn), host_ms=host_ms(fn))
+
+
+def _hold_blockdct(where, q, rec, qp, recp) -> tuple[float, float, int]:
+    """The kernel's (q (F, nb, 8, 8), rec (F, H, W)) against the plain
+    version's: max|dq| <= 1, and rec within 1e-3 on every tile whose q
+    agrees.  Returns (max |drec| there, sum |dq|, coefficients)."""
+    from repro_torch.kernels.blockdct.ops import blockify
+    dq = (q - qp).abs()
+    agree = (dq == 0).flatten(2).all(-1)
+    drec = (blockify(rec) - blockify(recp)).abs()[agree]
+    err = float(drec.max()) if drec.numel() else 0.0
+    if float(dq.max()) > 1 or err > 1e-3:
+        raise AssertionError(f"{where}: max|dq| {float(dq.max())}, max|drec| "
+                             f"where q agrees {err}")
+    return err, float(dq.sum()), dq.numel()
+
+
+def _blockdct_forms(frames, D, qt, where) -> tuple:
+    """The raster forward on ``frames`` (F, H, W), held against the plain
+    version, against the block form on the same tiles (bit for bit), and
+    its rec against the inverse of its own q (bit for bit).  Returns
+    (q, rec, max |drec|, sum |dq|, coefficients)."""
+    import torch
+    from repro_torch.kernels.blockdct import ops
+    F, H, W = frames.shape
+    q, rec = ops.forward_quant_raster(frames, D, qt)
+    qp, recp = ops.forward_quant_raster_plain(frames, D, qt)
+    qb, recb = ops.forward_quant(
+        ops.blockify(frames).reshape(-1, 8, 8).contiguous(), D, qt)
+    torch.cuda.synchronize()
+    err, dq_sum, n = _hold_blockdct(where, q, rec, qp, recp)
+    if not (torch.equal(qb, q.reshape(-1, 8, 8)) and torch.equal(
+            recb, ops.blockify(rec).reshape(-1, 8, 8))):
+        raise AssertionError(f"{where}: the raster and block forms differ")
+    if not torch.equal(ops.inverse_raster(q, D, qt, H, W), rec):
+        raise AssertionError(f"{where}: inverse(q) differs from the "
+                             "forward's rec")
+    return q, rec, err, dq_sum, n
+
+
+# the transform's sweep, checked and not timed: frame counts, and shapes
+# down to one tile and with an odd number of tiles a row
+BLOCKDCT_FRAMES = (1, 2, 30)
+BLOCKDCT_SHAPES = ((8, 8), (8, 24), (24, 40), (64, 96), (352, 640))
+QUALITIES = (50.0, 70.0)               # the LR codec's and the anchors'
+
+
+def check_blockdct_sweep(g) -> None:
+    """Both entries in both forms across BLOCKDCT_FRAMES x BLOCKDCT_SHAPES
+    x QUALITIES: the forward within its contract of the plain version,
+    the raster and block forms bit for bit, inverse(q) equal to the
+    forward's rec, the inverse within 1e-3 of its plain version and its
+    two forms bit for bit.  Checked, not timed."""
     import torch
     from repro_torch.codec.blockdct import dct_matrix, quant_table
     from repro_torch.kernels.blockdct import ops
     dev = torch.device("cuda")
     D = dct_matrix(8, dev)
-    nb = T * (H_HD // 8) * (W_HD // 8)             # the anchor batch
-    blocks = torch.rand((nb, 8, 8), generator=g, device=dev) * 255 - 128
-    fwd_err = 0.0
-    for quality in (50.0, 70.0):
-        qt = quant_table(quality, dev)
-        q, rec = ops.forward_quant(blocks, D, qt)
-        qp, recp = ops.forward_quant_plain(blocks, D, qt)
-        torch.cuda.synchronize()
-        dq = (q - qp).abs()
-        agree = (dq == 0).flatten(1).all(1)
-        err = float((rec - recp).abs()[agree].max())
-        print(f"[kernels] blockdct forward q{quality:.0f} {nb} blocks: "
-              f"max|dq| {float(dq.max())}, mean|dq| {float(dq.mean()):.2e}, "
-              f"max|drec| where q agrees {err:.3g}")
-        if float(dq.max()) > 1 or float(dq.mean()) >= 0.01 or err > 1e-3:
-            raise AssertionError("blockdct forward disagrees with its plain "
-                                 "version")
-        fwd_err = max(fwd_err, err)
-    qt = quant_table(70.0, dev)
-    fwd_ms = cuda_ms(lambda: ops.forward_quant(blocks, D, qt))
-    fwd_plain = cuda_ms(lambda: ops.forward_quant_plain(blocks, D, qt))
-    b_f, by_f = bound_ms(3 * nb * 64 * F32, nb * 4 * 8 * 8 * 8 * 2)
+    cases, dq_sum, n_coef, worst = 0, 0.0, 0, 0.0
+    for F in BLOCKDCT_FRAMES:
+        for H, W in BLOCKDCT_SHAPES:
+            frames = torch.rand((F, H, W), generator=g, device=dev) * 255 - 128
+            for quality in QUALITIES:
+                qt = quant_table(quality, dev)
+                where = f"blockdct F={F} {H}x{W} q{quality:.0f}"
+                q, _, err, s, n = _blockdct_forms(frames, D, qt, where)
+                dq_sum, n_coef = dq_sum + s, n_coef + n
+                rec = ops.inverse_raster(q, D, qt, H, W)
+                recp = ops.inverse_raster_plain(q, D, qt, H, W)
+                recb = ops.inverse(q.reshape(-1, 8, 8), D, qt)
+                torch.cuda.synchronize()
+                inv_err = float((rec - recp).abs().max())
+                if inv_err > 1e-3 or not torch.equal(
+                        recb, ops.blockify(rec).reshape(-1, 8, 8)):
+                    raise AssertionError(f"{where}: inverse max|drec| "
+                                         f"{inv_err}, or its forms differ")
+                worst = max(worst, err, inv_err)
+                cases += 1
+    if dq_sum / n_coef >= 0.01:
+        raise AssertionError(f"blockdct sweep: mean|dq| {dq_sum / n_coef}")
+    print(f"[kernels] blockdct sweep: {cases} cases (F "
+          f"{'/'.join(map(str, BLOCKDCT_FRAMES))} x "
+          f"{', '.join(f'{h}x{w}' for h, w in BLOCKDCT_SHAPES)} x q"
+          f"{'/'.join(f'{q:.0f}' for q in QUALITIES)}): forward max|dq| "
+          f"<= 1, mean|dq| {dq_sum / n_coef:.2e} over {n_coef} "
+          f"coefficients, max|drec| {worst:.3g} (forward where q agrees, "
+          "and inverse); raster == block form and inverse(q) == the "
+          "forward's rec, bit for bit")
 
-    # the decoder's inverse over the LR residuals of one chunk
-    nb_inv = T * (352 // 8) * (640 // 8)
-    q_inv, _ = ops.forward_quant_plain(blocks[:nb_inv].contiguous(), D, qt)
-    rec = ops.inverse(q_inv, D, qt)
-    recp = ops.inverse_plain(q_inv, D, qt)
-    torch.cuda.synchronize()
-    inv_err = float((rec - recp).abs().max())
-    print(f"[kernels] blockdct inverse {nb_inv} blocks: max|drec| "
-          f"{inv_err:.3g}")
-    if inv_err > 1e-3:
-        raise AssertionError("blockdct inverse disagrees with its plain "
-                             "version")
-    inv_ms = cuda_ms(lambda: ops.inverse(q_inv, D, qt))
-    inv_plain = cuda_ms(lambda: ops.inverse_plain(q_inv, D, qt))
-    b_i, by_i = bound_ms(2 * nb_inv * 64 * F32, nb_inv * 2 * 8 * 8 * 8 * 2)
+
+def check_blockdct(g) -> list[dict]:
+    """The forward at the anchor encode's shape (30 frames of 720x1280,
+    quality 70) and the LR codec's (one 352x640 frame, quality 50), the
+    inverse at the decoder's (30 frames of 352x640): each held against
+    its plain version (and both qualities at the anchor shape), its block
+    form and, for the forward, the inverse of its own q; then timed."""
+    import torch
+    from repro_torch.codec.blockdct import dct_matrix, quant_table
+    from repro_torch.kernels.blockdct import ops
+    dev = torch.device("cuda")
+    D = dct_matrix(8, dev)
     common = dict(route="cuda", source=SOURCE + "blockdct.cu",
                   replaces="src/repro/kernels/blockdct/kernel.py:41",
                   library_ms=None)
-    return [dict(name="blockdct_forward", mode="forward_quant",
-                 max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
-                 bound_ms=b_f, bound_by=by_f, shape=f"{nb} blocks", **common),
-            dict(name="blockdct_inverse", mode="inverse",
-                 max_abs_err=inv_err, ms=inv_ms, plain_ms=inv_plain,
-                 bound_ms=b_i, bound_by=by_i, shape=f"{nb_inv} blocks",
-                 **common)]
+    out = []
+    for label, shape, qualities in (
+            ("anchor encode", (T, H_HD, W_HD), QUALITIES),
+            ("LR transform", (1, 352, 640), QUALITIES[:1])):
+        frames = torch.rand(shape, generator=g, device=dev) * 255 - 128
+        n_px = math.prod(shape)
+        fwd_err = 0.0
+        for quality in qualities:
+            qt = quant_table(quality, dev)
+            where = f"blockdct forward {'x'.join(map(str, shape))} " \
+                    f"q{quality:.0f}"
+            _, _, err, dq_sum, n = _blockdct_forms(frames, D, qt, where)
+            print(f"[kernels] {where} ({label}): mean|dq| {dq_sum / n:.2e}, "
+                  f"max|drec| where q agrees {err:.3g}; raster == block "
+                  "form, inverse(q) == rec, bit for bit")
+            if dq_sum / n >= 0.01:
+                raise AssertionError(f"{where}: mean|dq| {dq_sum / n}")
+            fwd_err = max(fwd_err, err)
+        b, by = bound_ms(3 * n_px * F32, n_px * 4 * 8 * 2)
+        out.append(dict(
+            name="blockdct_forward", mode=f"forward_quant, {label}",
+            max_abs_err=fwd_err,
+            plain_ms=cuda_ms(lambda: ops.forward_quant_raster_plain(
+                frames, D, qt), reps=5, inner=1, warmup=1),
+            bound_ms=b, bound_by=by, shape="x".join(map(str, shape)),
+            **_timed(lambda: ops.forward_quant_raster(frames, D, qt)),
+            **common))
+
+    # the decoder's inverse over the LR residuals of one chunk
+    H, W = 352, 640
+    qt = quant_table(QUALITIES[0], dev)
+    frames = torch.rand((T, H, W), generator=g, device=dev) * 255 - 128
+    q, _ = ops.forward_quant_raster_plain(frames, D, qt)
+    rec = ops.inverse_raster(q, D, qt, H, W)
+    recp = ops.inverse_raster_plain(q, D, qt, H, W)
+    recb = ops.inverse(q.reshape(-1, 8, 8), D, qt)
+    torch.cuda.synchronize()
+    inv_err = float((rec - recp).abs().max())
+    print(f"[kernels] blockdct inverse {T}x{H}x{W}: max|drec| {inv_err:.3g}")
+    if inv_err > 1e-3:
+        raise AssertionError("blockdct inverse disagrees with its plain "
+                             "version")
+    if not torch.equal(recb, ops.blockify(rec).reshape(-1, 8, 8)):
+        raise AssertionError("blockdct inverse: the raster and block forms "
+                             "differ")
+    n_px = T * H * W
+    b, by = bound_ms(2 * n_px * F32, n_px * 2 * 8 * 2)
+    out.append(dict(
+        name="blockdct_inverse", mode="inverse, decoder", max_abs_err=inv_err,
+        plain_ms=cuda_ms(lambda: ops.inverse_raster_plain(q, D, qt, H, W),
+                         reps=5, inner=1, warmup=1),
+        bound_ms=b, bound_by=by, shape=f"{T}x{H}x{W}",
+        **_timed(lambda: ops.inverse_raster(q, D, qt, H, W)), **common))
+    return out
+
+
+def _qtransfer_inputs(g, B, H, W, max_mv, step=1, dtype=None):
+    """anchor in [0, 255), a residual of std 8 (both in ``dtype``) and
+    motion vectors in [-max_mv, max_mv], multiples of ``step``."""
+    import torch
+    dev = torch.device("cuda")
+    anchor = torch.rand((B, H, W), generator=g, device=dev) * 255
+    resid = torch.randn((B, H, W), generator=g, device=dev) * 8
+    mv = torch.randint(-(max_mv // step), max_mv // step + 1,
+                       (B, H // 16, W // 16, 2), generator=g, device=dev,
+                       dtype=torch.int32) * step
+    if dtype is not None:
+        anchor, resid = anchor.to(dtype), resid.to(dtype)
+    return anchor, mv, resid
+
+
+def _hold_qtransfer(where, anchor, mv, resid, **kw) -> None:
+    """The kernel equal to its plain version, bit for bit."""
+    import torch
+    from repro_torch.kernels.qtransfer.ops import qtransfer, qtransfer_plain
+    out = qtransfer(anchor, mv, resid, **kw)
+    ref = qtransfer_plain(anchor, mv, resid, **kw)
+    torch.cuda.synchronize()
+    if out.dtype != ref.dtype or not torch.equal(out, ref):
+        err = float((out.float() - ref.float()).abs().max())
+        raise AssertionError(f"{where}: not exact (max err {err})")
+
+
+# the gather's sweep, checked and not timed: widths of one macroblock and
+# not multiples of 64, MVs far past the frame, in small steps and in
+# 16-byte-aligned steps (the kernel's one-load runs)
+QTRANSFER_SHAPES = ((1, 16, 16), (2, 48, 16), (3, 32, 48), (2, 64, 80),
+                    (1, 96, 208), (4, 176, 336))
+QTRANSFER_MVS = ((120, 1), (3, 1), (16, 4), (24, 8))
+
+
+def check_qtransfer_sweep(g) -> None:
+    """Every form (pixel f32, block f32, block bf16; block radii 0, 16 and
+    200 in turn) with and without a residual across QTRANSFER_SHAPES x
+    QTRANSFER_MVS, each exact against its plain version."""
+    import torch
+    bf = torch.bfloat16
+    forms = (("pixel", None), ("block", None), ("block", bf))
+    calls = 0
+    for B, H, W in QTRANSFER_SHAPES:
+        for max_mv, step in QTRANSFER_MVS:
+            for edge, dtype in forms:
+                anchor, mv, resid = _qtransfer_inputs(g, B, H, W, max_mv,
+                                                      step, dtype)
+                radius = (0, 16, 200)[calls // 2 % 3]
+                for r in (None, resid):
+                    _hold_qtransfer(
+                        f"qtransfer {edge} {dtype} {B}x{H}x{W} |mv|<="
+                        f"{max_mv} step {step} resid={r is not None}",
+                        anchor, mv, r, edge=edge, radius=radius, dtype=dtype)
+                    calls += 1
+    print(f"[kernels] qtransfer sweep: {calls} calls exact (pixel f32, block "
+          f"f32 and bf16 at radii 0/16/200, with and without a residual; "
+          f"{', '.join('x'.join(map(str, s)) for s in QTRANSFER_SHAPES)}; "
+          f"|mv| <= {'/'.join(str(m) for m, _ in QTRANSFER_MVS)} in steps "
+          f"of {'/'.join(str(s) for _, s in QTRANSFER_MVS)})")
 
 
 def check_qtransfer(g) -> list[dict]:
+    """The quality transfer's form (30 frames of 720x1280, pixel edge, a
+    residual, |mv| <= 24), both edges with and without the residual at
+    that shape, the motion compensation's (one 352x640 frame, pixel edge,
+    no residual, |mv| <= 8) and the bf16 block form at the HD shape: each
+    exact against its plain version, then timed."""
     import torch
     from repro_torch.kernels.qtransfer.ops import qtransfer, qtransfer_plain
-    dev = torch.device("cuda")
-    shape = (T, H_HD, W_HD)
-    anchor = torch.rand(shape, generator=g, device=dev) * 255
-    resid = torch.randn(shape, generator=g, device=dev) * 8
-    mv = torch.randint(-24, 25, (T, H_HD // 16, W_HD // 16, 2), generator=g,
-                       device=dev, dtype=torch.int32)
-    max_err = 0.0
-    for edge in ("pixel", "block"):
-        for r in (None, resid):
-            out = qtransfer(anchor, mv, r, edge=edge)
-            ref = qtransfer_plain(anchor, mv, r, edge=edge)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            label = "gather" if r is None else "gather+resid+clip"
-            print(f"[kernels] qtransfer edge={edge} {label} "
-                  f"{'x'.join(map(str, shape))} |mv|<=24: max err {err}")
-            if err != 0.0:
-                raise AssertionError(f"qtransfer edge={edge} is not exact")
-            max_err = max(max_err, err)
-    ms = cuda_ms(lambda: qtransfer(anchor, mv, resid, edge="pixel"))
-    plain = cuda_ms(lambda: qtransfer_plain(anchor, mv, resid, edge="pixel"))
-    n = math.prod(shape)
-    b, by = bound_ms(3 * n * F32 + mv.numel() * 4, 2 * n)
     common = dict(route="cuda", source=SOURCE + "qtransfer.cu",
                   replaces="src/repro/kernels/qtransfer/kernel.py:50",
-                  library_ms=None)
-    out = [dict(name="qtransfer", mode="pixel (main path) and block",
-                max_abs_err=max_err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, shape="x".join(map(str, shape)) + " pixel+resid",
+                  library_ms=None, max_abs_err=0.0)
+    shape = (T, H_HD, W_HD)
+    anchor, mv, resid = _qtransfer_inputs(g, *shape, 24)
+    for edge in ("pixel", "block"):
+        for r in (None, resid):
+            _hold_qtransfer(f"qtransfer edge={edge} resid={r is not None}",
+                            anchor, mv, r, edge=edge)
+    print(f"[kernels] qtransfer edge=pixel/block, gather and gather+resid+"
+          f"clip, {'x'.join(map(str, shape))} |mv|<=24: exact")
+    n = math.prod(shape)
+    b, by = bound_ms(3 * n * F32 + mv.numel() * 4, 2 * n)
+    out = [dict(name="qtransfer", mode="pixel, quality transfer",
+                plain_ms=cuda_ms(lambda: qtransfer_plain(
+                    anchor, mv, resid, edge="pixel")),
+                bound_ms=b, bound_by=by,
+                shape="x".join(map(str, shape)) + " pixel+resid",
+                **_timed(lambda: qtransfer(anchor, mv, resid, edge="pixel")),
                 **common)]
+
+    lr = (1, 352, 640)
+    a_lr, mv_lr, _ = _qtransfer_inputs(g, *lr, RADIUS)
+    _hold_qtransfer("qtransfer LR bare gather", a_lr, mv_lr, None,
+                    edge="pixel")
+    print(f"[kernels] qtransfer edge=pixel gather {'x'.join(map(str, lr))} "
+          f"|mv|<={RADIUS}: exact")
+    n_lr = math.prod(lr)
+    b, by = bound_ms(2 * n_lr * F32 + mv_lr.numel() * 4, 0)
+    out.append(dict(name="qtransfer", mode="pixel, motion compensation",
+                    plain_ms=cuda_ms(lambda: qtransfer_plain(
+                        a_lr, mv_lr, edge="pixel")),
+                    bound_ms=b, bound_by=by,
+                    shape="x".join(map(str, lr)) + " pixel bare",
+                    **_timed(lambda: qtransfer(a_lr, mv_lr, edge="pixel")),
+                    **common))
 
     # bf16 storage, block mode: gather and add in f32, one rounding
     bf = torch.bfloat16
     a16, r16 = anchor.to(bf), resid.to(bf)
-    o16 = qtransfer(a16, mv, r16, edge="block", dtype=bf)
-    p16 = qtransfer_plain(a16, mv, r16, edge="block", dtype=bf)
-    torch.cuda.synchronize()
-    if o16.dtype != bf or not torch.equal(o16, p16):
-        raise AssertionError("qtransfer bf16 block mode is not exact")
+    _hold_qtransfer("qtransfer_bf16 block", a16, mv, r16, edge="block",
+                    dtype=bf)
     print(f"[kernels] qtransfer_bf16 edge=block gather+resid+clip "
           f"{'x'.join(map(str, shape))} |mv|<=24: exact")
-    ms16 = cuda_ms(lambda: qtransfer(a16, mv, r16, edge="block", dtype=bf))
-    plain16 = cuda_ms(lambda: qtransfer_plain(a16, mv, r16, edge="block",
-                                              dtype=bf))
     b16, by16 = bound_ms(3 * n * BF16 + mv.numel() * 4, 2 * n)
     out.append(dict(name="qtransfer_bf16", mode="block, bf16 storage",
-                    max_abs_err=0.0, ms=ms16, plain_ms=plain16, bound_ms=b16,
-                    bound_by=by16,
+                    plain_ms=cuda_ms(lambda: qtransfer_plain(
+                        a16, mv, r16, edge="block", dtype=bf)),
+                    bound_ms=b16, bound_by=by16,
                     shape="x".join(map(str, shape)) + " block+resid",
+                    **_timed(lambda: qtransfer(a16, mv, r16, edge="block",
+                                               dtype=bf)),
                     **common))
     return out
 
@@ -1323,6 +1523,8 @@ def main(argv) -> int:
     # get the same inputs with or without it
     check_flash_sweep(torch.Generator(device="cuda").manual_seed(1))
     check_motion_sad_sweep(torch.Generator(device="cuda").manual_seed(2))
+    check_blockdct_sweep(torch.Generator(device="cuda").manual_seed(3))
+    check_qtransfer_sweep(torch.Generator(device="cuda").manual_seed(4))
     g = torch.Generator(device="cuda").manual_seed(0)
     kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
                check_roi_gather(g), *check_flash_attention(g)]

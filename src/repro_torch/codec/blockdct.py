@@ -1,11 +1,13 @@
 """8x8 block DCT + quantisation, the JPEG/H.264 transform core (port of
 ``repro.codec.blockdct``).
 
-``dct_quantize`` and ``dequant_idct`` are the codec's transform entries:
-they go through the ``blockdct`` kernel's wrappers, which launch the CUDA
-kernel on CUDA tensors and run the plain PyTorch version on CPU tensors.
-``dct2``/``idct2``/``quantize_with_table`` are the codec's plain pieces,
-kept for the parity tests and the oracle.
+``dct_quantize_raster`` and ``dequant_idct_raster`` are the codec's
+transform entries: raster frames in, quantised coefficients in block order
+and raster reconstructions out, through the ``blockdct`` kernel's wrappers,
+which launch the CUDA kernel on CUDA tensors and run the plain PyTorch
+version on CPU tensors.  ``dct_quantize``/``dequant_idct`` take tiles in
+block order.  ``dct2``/``idct2``/``quantize_with_table`` are the codec's
+plain pieces, kept for the parity tests and the oracle.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.blockdct import ops as blockdct_ops
+from repro_torch.kernels.blockdct.ops import blockify, unblockify  # noqa: F401
 
 f32 = torch.float32
 
@@ -60,20 +63,6 @@ def quant_table(quality, device=None):
     return qtab.clamp(min=1.0).to(device)
 
 
-def blockify(img, block: int = 8):
-    """(..., H, W) -> (..., H/b * W/b, b, b).  H, W multiples of b."""
-    *lead, H, W = img.shape
-    x = img.reshape(*lead, H // block, block, W // block, block)
-    return x.transpose(-3, -2).reshape(*lead, -1, block, block)
-
-
-def unblockify(blocks, H: int, W: int, block: int = 8):
-    """(..., nb, b, b) -> (..., H, W)."""
-    lead = blocks.shape[:-3]
-    x = blocks.reshape(*lead, H // block, W // block, block, block)
-    return x.transpose(-3, -2).reshape(*lead, H, W)
-
-
 def dct2(blocks):
     D = dct_matrix(blocks.shape[-1], blocks.device)
     return D @ blocks.to(f32) @ D.T
@@ -92,10 +81,30 @@ def dequantize(qcoefs, qtab):
     return qcoefs * qtab
 
 
+def dct_quantize_raster(frames, qtab):
+    """(..., H, W) frames, H and W multiples of 8 -> (q (..., nb, 8, 8) in
+    block order, rec (..., H, W) in raster): quantised DCT coefficients
+    and the dequantised inverse transform, in ONE blockdct launch for
+    every frame."""
+    *lead, H, W = frames.shape
+    q, rec = blockdct_ops.forward_quant_raster(
+        frames.reshape(-1, H, W).contiguous(),
+        dct_matrix(8, frames.device), qtab)
+    return q.reshape(*lead, -1, 8, 8), rec.reshape(frames.shape)
+
+
+def dequant_idct_raster(q, qtab, H: int, W: int):
+    """(..., nb, 8, 8) quantised coefficients in block order -> (..., H, W)
+    pixel-domain frames, in ONE blockdct inverse launch."""
+    rec = blockdct_ops.inverse_raster(
+        q.reshape(-1, *q.shape[-3:]).contiguous(), dct_matrix(8, q.device),
+        qtab, H, W)
+    return rec.reshape(*q.shape[:-3], H, W)
+
+
 def dct_quantize(blocks, qtab):
-    """(..., nb, 8, 8) -> (q, rec): quantised DCT coefficients and the
-    dequantised inverse transform, in ONE blockdct launch for all the
-    blocks of every leading index."""
+    """(..., nb, 8, 8) tiles in block order -> (q, rec) of the same shape,
+    in ONE blockdct launch."""
     shape = blocks.shape
     q, rec = blockdct_ops.forward_quant(
         blocks.reshape(-1, 8, 8).contiguous(),
@@ -104,8 +113,8 @@ def dct_quantize(blocks, qtab):
 
 
 def dequant_idct(q, qtab):
-    """(..., nb, 8, 8) quantised coefficients -> pixel-domain blocks, in
-    ONE blockdct inverse launch."""
+    """(..., nb, 8, 8) quantised coefficients -> pixel-domain tiles, in ONE
+    blockdct inverse launch."""
     rec = blockdct_ops.inverse(q.reshape(-1, 8, 8).contiguous(),
                                dct_matrix(8, q.device), qtab)
     return rec.reshape(q.shape)
@@ -142,7 +151,7 @@ def transform_quantize(img, quality):
     """JPEG round trip of (H, W) or (T, H, W) frames, all blocks in one
     blockdct launch.  Returns (recon, bits) with bits () or (T,)."""
     H, W = img.shape[-2:]
-    blocks = blockify(img.to(f32) - 128.0)
-    q, rec = dct_quantize(blocks, quant_table(quality, img.device))
+    q, rec = dct_quantize_raster(img.to(f32) - 128.0,
+                                 quant_table(quality, img.device))
     bits = entropy_bits(q, grid=(H // 8, W // 8))
-    return (unblockify(rec, H, W) + 128.0).clamp(0.0, 255.0), bits
+    return (rec + 128.0).clamp(0.0, 255.0), bits

@@ -63,10 +63,9 @@ def _mean_abs(x):
 
 def _encode_iframe(frame, qtab):
     H, W = frame.shape
-    q, rec = B.dct_quantize(B.blockify(frame.to(f32) - 128.0), qtab)
+    q, rec = B.dct_quantize_raster(frame.to(f32) - 128.0, qtab)
     bits = B.entropy_bits(q, grid=(H // 8, W // 8))
-    rec = B.unblockify(rec, H, W) + 128.0
-    return rec.clamp(0.0, 255.0), q, bits
+    return (rec + 128.0).clamp(0.0, 255.0), q, bits
 
 
 def _encode_pframe(frame, ref_recon, qtab, cfg: VideoCodecConfig):
@@ -75,10 +74,10 @@ def _encode_pframe(frame, ref_recon, qtab, cfg: VideoCodecConfig):
                         dtype=cfg.search_dtype, search=cfg.search)
     pred = M.warp_blocks(ref_recon, mv)
     resid = frame.to(f32) - pred
-    q, rec_resid = B.dct_quantize(B.blockify(resid), qtab)
+    q, rec_resid = B.dct_quantize_raster(resid, qtab)
     bits = B.entropy_bits(q, grid=(H // 8, W // 8)) \
         + mv.numel() * 3.0                          # MV coding cost proxy
-    rec = (pred + B.unblockify(rec_resid, H, W)).clamp(0.0, 255.0)
+    rec = (pred + rec_resid).clamp(0.0, 255.0)
     return rec, mv, q, bits, _mean_abs(resid)
 
 

@@ -14,7 +14,7 @@ from repro_torch.kernels.qtransfer.ops import qtransfer
 def residual_to_pixels(residual_q, qtab, H: int, W: int):
     """Dequantize + inverse-transform residual coefficients:
     (..., nb, 8, 8) -> (..., H, W), one blockdct inverse launch."""
-    return B.unblockify(B.dequant_idct(residual_q, qtab), H, W)
+    return B.dequant_idct_raster(residual_q, qtab, H, W)
 
 
 def transfer_frame(anchor_hd, mv_acc, residual_px):

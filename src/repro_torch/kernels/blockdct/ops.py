@@ -6,6 +6,12 @@ Port of ``repro/kernels/blockdct``.  The kernels are
 arithmetic in PyTorch, taken for CPU tensors and used as the kernels'
 reference on the card.  Like the TPU kernel, both take the DCT matrix and
 the quantisation table as arguments.
+
+The raster entries take (F, H, W) frames and give the quantised
+coefficients in block order, (F, nb, 8, 8) with nb = (H/8)(W/8) tiles
+row-major over the frame, and the reconstruction in raster; the kernel
+reads and writes the frames in place of a block-order copy.  The block
+entries, on (nb, 8, 8) tiles, are the case F = nb, H = W = 8.
 """
 from __future__ import annotations
 
@@ -14,6 +20,20 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+
+
+def blockify(img, block: int = 8):
+    """(..., H, W) -> (..., H/b * W/b, b, b).  H, W multiples of b."""
+    *lead, H, W = img.shape
+    x = img.reshape(*lead, H // block, block, W // block, block)
+    return x.transpose(-3, -2).reshape(*lead, -1, block, block)
+
+
+def unblockify(blocks, H: int, W: int, block: int = 8):
+    """(..., nb, b, b) -> (..., H, W)."""
+    lead = blocks.shape[:-3]
+    x = blocks.reshape(*lead, H // block, W // block, block, block)
+    return x.transpose(-3, -2).reshape(*lead, H, W)
 
 
 def forward_quant_plain(blocks, dmat, qtab):
@@ -29,15 +49,30 @@ def inverse_plain(q, dmat, qtab):
     return dmat.T @ (q * qtab) @ dmat
 
 
+def forward_quant_raster_plain(frames, dmat, qtab):
+    """frames (F, H, W) -> (q (F, nb, 8, 8) in block order, rec (F, H, W)):
+    :func:`forward_quant_plain` between a block-order copy and back."""
+    F, H, W = frames.shape
+    q, rec = forward_quant_plain(blockify(frames).reshape(-1, 8, 8), dmat,
+                                 qtab)
+    return q.reshape(F, -1, 8, 8), unblockify(rec.reshape(F, -1, 8, 8), H, W)
+
+
+def inverse_raster_plain(q, dmat, qtab, H: int, W: int):
+    """q (F, nb, 8, 8) -> rec (F, H, W): :func:`inverse_plain`, back to
+    raster."""
+    rec = inverse_plain(q.reshape(-1, 8, 8), dmat, qtab)
+    return unblockify(rec.reshape(q.shape), H, W)
+
+
 _P = ctypes.c_void_p
-_FORWARD_ARGTYPES = [_P, _P, _P, ctypes.c_long, _P, _P, _P]
-_INVERSE_ARGTYPES = [_P, _P, _P, ctypes.c_long, _P, _P]
+_FORWARD_ARGTYPES = [_P, _P, _P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                     _P, _P, _P]
+_INVERSE_ARGTYPES = [_P, _P, _P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                     _P, _P]
 
 
 def _check(name, x, dmat, qtab):
-    if x.dim() != 3 or x.shape[1:] != (8, 8) or x.shape[0] == 0:
-        raise ValueError(f"{name} must be (nb, 8, 8) with nb > 0, "
-                         f"got {tuple(x.shape)}")
     if dmat.shape != (8, 8) or qtab.shape != (8, 8):
         raise ValueError("dmat and qtab must be (8, 8)")
     if x.device.type not in ("cpu", "cuda"):
@@ -45,34 +80,81 @@ def _check(name, x, dmat, qtab):
     if x.device.type == "cuda":
         for n, t in ((name, x), ("dmat", dmat), ("qtab", qtab)):
             build.check_cuda_tensor(n, t, torch.float32, x.device)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{n} must be 16-byte aligned")
+
+
+def forward_quant_raster(frames, dmat, qtab):
+    """frames (F, H, W) f32, H and W multiples of 8 -> (q (F, nb, 8, 8) in
+    block order, rec (F, H, W)) as :func:`forward_quant_raster_plain`.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted as ``blockdct_forward``)."""
+    if frames.dim() != 3 or 0 in frames.shape or frames.shape[1] % 8 \
+            or frames.shape[2] % 8:
+        raise ValueError(f"frames must be (F, H, W) with F > 0 and H, W "
+                         f"multiples of 8, got {tuple(frames.shape)}")
+    _check("frames", frames, dmat, qtab)
+    if frames.device.type == "cpu":
+        return forward_quant_raster_plain(frames, dmat, qtab)
+    F, H, W = frames.shape
+    q = torch.empty((F, (H // 8) * (W // 8), 8, 8), dtype=torch.float32,
+                    device=frames.device)
+    rec = torch.empty_like(frames)
+    fn = build.kernel_function("blockdct", "blockdct_forward_quant",
+                               _FORWARD_ARGTYPES)
+    build.launch("blockdct_forward", fn, build.ptr(frames), build.ptr(dmat),
+                 build.ptr(qtab), F, H, W, build.ptr(q), build.ptr(rec),
+                 build.stream_ptr(frames.device))
+    return q, rec
+
+
+def inverse_raster(q, dmat, qtab, H: int, W: int):
+    """q (F, (H/8)(W/8), 8, 8) f32 in block order -> rec (F, H, W) as
+    :func:`inverse_raster_plain`.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted as ``blockdct_inverse``)."""
+    if q.dim() != 4 or q.shape[2:] != (8, 8) or q.shape[0] == 0 \
+            or H <= 0 or W <= 0 or H % 8 or W % 8 \
+            or q.shape[1] != (H // 8) * (W // 8):
+        raise ValueError(f"q must be (F, (H/8)(W/8), 8, 8) with F > 0 for "
+                         f"H, W multiples of 8; got {tuple(q.shape)} for "
+                         f"{H}x{W}")
+    _check("q", q, dmat, qtab)
+    if q.device.type == "cpu":
+        return inverse_raster_plain(q, dmat, qtab, H, W)
+    rec = torch.empty((q.shape[0], H, W), dtype=torch.float32,
+                      device=q.device)
+    fn = build.kernel_function("blockdct", "blockdct_inverse",
+                               _INVERSE_ARGTYPES)
+    build.launch("blockdct_inverse", fn, build.ptr(q), build.ptr(dmat),
+                 build.ptr(qtab), q.shape[0], H, W, build.ptr(rec),
+                 build.stream_ptr(q.device))
+    return rec
+
+
+def _check_blocks(name, x):
+    if x.dim() != 3 or x.shape[1:] != (8, 8) or x.shape[0] == 0:
+        raise ValueError(f"{name} must be (nb, 8, 8) with nb > 0, "
+                         f"got {tuple(x.shape)}")
 
 
 def forward_quant(blocks, dmat, qtab):
     """blocks (nb, 8, 8) f32 -> (q, rec) as :func:`forward_quant_plain`.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    _check("blocks", blocks, dmat, qtab)
+    CPU tensors take the plain version; CUDA tensors the raster kernel on
+    nb frames of 8x8."""
+    _check_blocks("blocks", blocks)
     if blocks.device.type == "cpu":
+        _check("blocks", blocks, dmat, qtab)
         return forward_quant_plain(blocks, dmat, qtab)
-    q = torch.empty_like(blocks)
-    rec = torch.empty_like(blocks)
-    fn = build.kernel_function("blockdct", "blockdct_forward_quant",
-                               _FORWARD_ARGTYPES)
-    build.launch("blockdct_forward", fn, build.ptr(blocks), build.ptr(dmat),
-                 build.ptr(qtab), blocks.shape[0], build.ptr(q),
-                 build.ptr(rec), build.stream_ptr(blocks.device))
-    return q, rec
+    q, rec = forward_quant_raster(blocks, dmat, qtab)
+    return q.reshape(blocks.shape), rec
 
 
 def inverse(q, dmat, qtab):
     """q (nb, 8, 8) f32 -> rec as :func:`inverse_plain`.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
-    _check("q", q, dmat, qtab)
+    the plain version; CUDA tensors the raster kernel on nb frames of
+    8x8."""
+    _check_blocks("q", q)
     if q.device.type == "cpu":
+        _check("q", q, dmat, qtab)
         return inverse_plain(q, dmat, qtab)
-    rec = torch.empty_like(q)
-    fn = build.kernel_function("blockdct", "blockdct_inverse",
-                               _INVERSE_ARGTYPES)
-    build.launch("blockdct_inverse", fn, build.ptr(q), build.ptr(dmat),
-                 build.ptr(qtab), q.shape[0], build.ptr(rec),
-                 build.stream_ptr(q.device))
-    return rec
+    return inverse_raster(q[:, None], dmat, qtab, 8, 8)

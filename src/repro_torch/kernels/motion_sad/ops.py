@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 
 MB = 16
 SEARCHES = ("exhaustive", "diamond")
-# the largest search radius the wrapper takes
+# the largest search radius the kernel takes (the plain versions take any)
 MAX_RADIUS = 67
 f32 = torch.float32
 
@@ -148,8 +148,9 @@ def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
     nby, nbx, 2) int32 (dy, dx), sad (..., nby, nbx) f32) as in
     :func:`motion_sad_plain`.  ``search`` is "exhaustive" or "diamond";
     ``dtype`` is the storage dtype (None for f32, or torch.bfloat16);
-    0 <= ``radius`` <= MAX_RADIUS.  CPU tensors take the plain versions;
-    CUDA tensors launch the kernel, all T frames at once."""
+    ``radius`` >= 0, as in the reference.  CPU tensors take the plain
+    versions, at any radius; CUDA tensors launch the kernel, all T frames
+    at once, for radii up to MAX_RADIUS (ValueError above it)."""
     if search not in SEARCHES:
         raise ValueError(f"unknown search strategy {search!r} "
                          f"(expected one of {SEARCHES})")
@@ -159,15 +160,17 @@ def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
         raise ValueError(f"cur/ref must be equal, non-empty (H, W) or (T, "
                          f"H, W) with H, W multiples of {MB}; got "
                          f"{tuple(cur.shape)}, {tuple(ref.shape)}")
-    if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"search radius must be in [0, {MAX_RADIUS}], got "
-                         f"{radius}")
+    if radius < 0:
+        raise ValueError(f"search radius must be >= 0, got {radius}")
     if cur.device.type == "cpu":
         plain = motion_sad_diamond_plain if search == "diamond" \
             else motion_sad_plain
         return plain(cur, ref, radius, dtype=dtype)
     if cur.device.type != "cuda":
         raise ValueError(f"motion_sad runs on cpu or cuda, not {cur.device}")
+    if radius > MAX_RADIUS:
+        raise ValueError(f"search radius must be in [0, {MAX_RADIUS}] on "
+                         f"CUDA, got {radius}")
     cur, ref = (x.to(store).contiguous() for x in (cur, ref))
     for name, t in (("cur", cur), ("ref", ref)):
         build.check_cuda_tensor(name, t, store, cur.device)

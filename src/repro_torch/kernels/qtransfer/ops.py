@@ -121,6 +121,11 @@ def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
     build.check_cuda_tensor("mv", mv, torch.int32, anchor.device)
     if resid is not None:
         build.check_cuda_tensor("resid", resid, store, anchor.device)
+    # the kernel moves 16 bytes of a row at a time and each MV as 8 bytes
+    for name, t, align in (("anchor", anchor, 16), ("resid", resid, 16),
+                           ("mv", mv, 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
     out = torch.empty_like(anchor)
     fn = build.kernel_function("qtransfer", "qtransfer_launch", _ARGTYPES)
     build.launch("qtransfer_bf16" if bf16 else "qtransfer", fn,

@@ -146,6 +146,25 @@ def test_block_sad_scan_and_block_sad_match_reference(frames):
         M.block_sad(_t(cur), _t(ref), 8, search="spiral")
 
 
+@pytest.mark.parametrize("search", ["exhaustive", "diamond"])
+def test_block_sad_matches_reference_at_the_lr_shape(search):
+    """The main path's LR shape, 352x640 at R=8: integer-valued frames
+    (every SAD exact), a frame and its shifted, noisier successor."""
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 255, (352 + 32, 640 + 32))
+    ref = np.round(base[16:368, 16:656]).astype(np.float32)
+    noisy = base[13:365, 18:658] + rng.normal(0, 3, (352, 640))
+    cur = np.clip(np.round(noisy), 0, 255).astype(np.float32)
+    if search == "exhaustive":
+        jmv, jsad = JM.block_sad_scan(jnp.asarray(cur), jnp.asarray(ref), 8)
+    else:
+        jmv, jsad = JM.block_sad(jnp.asarray(cur), jnp.asarray(ref), 8,
+                                 search="diamond")
+    mv, sad = M.block_sad(_t(cur), _t(ref), 8, search=search)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(jmv))
+    np.testing.assert_array_equal(sad.numpy(), np.asarray(jsad))
+
+
 def test_warp_blocks_exact(frames):
     mv = np.random.default_rng(2).integers(-24, 25, (H // 16, W // 16, 2)) \
         .astype(np.int32)

@@ -180,10 +180,27 @@ def test_wrapper_rejects_bad_shapes_and_radii():
         motion_sad(cur[None, :0], ref[None, :0], 4)
     with pytest.raises(ValueError, match="multiples of 16"):
         motion_sad(cur[:, :40], ref[:, :40], 4)
-    for radius in (-1, MAX_RADIUS + 1):
+    for search in ("exhaustive", "diamond"):
         with pytest.raises(ValueError, match="search radius"):
-            motion_sad(cur, ref, radius, search="diamond")
-    # the widest radius the kernel takes runs (here its plain version)
-    mv, _ = motion_sad(cur[:16, :16], ref[:16, :16], MAX_RADIUS,
-                       search="diamond")
-    assert mv.shape == (1, 1, 2) and int(mv.abs().max()) <= MAX_RADIUS
+            motion_sad(cur, ref, -1, search=search)
+    # the kernel's widest radius and one past it run on the CPU: the plain
+    # versions take any radius, as the reference does (the CUDA branch
+    # raises above MAX_RADIUS, which chip_smoke.py holds on the card)
+    for radius in (MAX_RADIUS, MAX_RADIUS + 1):
+        mv, _ = motion_sad(cur[:16, :16], ref[:16, :16], radius,
+                           search="diamond")
+        assert mv.shape == (1, 1, 2) and int(mv.abs().max()) <= radius
+
+
+# ---------------------------- radii past the kernel's, on the CPU, exact
+@pytest.mark.parametrize("search", ["exhaustive", "diamond"])
+@pytest.mark.parametrize("radius", [MAX_RADIUS + 1, 100])
+def test_cpu_search_takes_radii_past_the_kernel(radius, search):
+    """The reference's ``block_sad`` takes any radius; so does the port's
+    on CPU tensors.  Integer-valued 32x48 frames: MVs and SADs exact."""
+    cur, ref = _frames(32, 48, "integer")
+    jmv, jsad = JM.block_sad(jnp.asarray(cur), jnp.asarray(ref), radius,
+                             search=search)
+    mv, sad = M.block_sad(_t(cur), _t(ref), radius, search=search)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(jmv))
+    np.testing.assert_array_equal(sad.numpy(), np.asarray(jsad))

@@ -187,6 +187,27 @@ def test_region_scores_match(encoded, roi):
                         lr_extent=(48, 64))
 
 
+@pytest.mark.parametrize("roi", [
+    R.RoiConfig(region_px=80, halo=8, capacity=36),
+    R.RoiConfig(region_px=40, w_motion=0.5, w_resid=2.0)])
+@pytest.mark.parametrize("lr_hw", [(352, 640), (480, 848)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_region_scores_match_at_the_ladder_shapes(lr_hw, roi):
+    """720p sources at ladder rungs 2 (352x640) and 1 (480x848): MVs up to
+    the search radius, sparse integer coefficients."""
+    h, w = lr_hw
+    rng = np.random.default_rng([h, w])
+    mv = rng.integers(-8, 9, (3, h // 16, w // 16, 2)).astype(np.int32)
+    rq = (np.round(rng.normal(0, 3, (3, (h // 8) * (w // 8), 8, 8)))
+          * (rng.uniform(size=(3, (h // 8) * (w // 8), 8, 8)) < 0.2)) \
+        .astype(np.float32)
+    ours = R.region_scores(_t(mv), _t(rq), lr_hw, (720, 1280), roi)
+    ref = JR.region_scores(jnp.asarray(mv), jnp.asarray(rq), lr_hw,
+                           (720, 1280),
+                           JR.RoiConfig(**dataclasses.asdict(roi)))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
 # ---------------------------------------- patch forward, scatter, carry
 def _selection(seed, n, R_, K):
     rng = np.random.default_rng(seed)

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
-    python3 chip_smoke.py --profile main|roi|lm   (one profile alone)
+    python3 chip_smoke.py --profile main|roi|batched|lm   (one profile)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -11,8 +11,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with nvcc, one process per source;
 3. kernels: each kernel form (motion_sad exhaustive/diamond x f32/bf16,
    blockdct forward at the anchor and LR shapes and its inverse,
-   qtransfer f32 at the quality transfer's and the motion compensation's
-   shapes and bf16, roi_gather, and seven flash_attention forms:
+   and with a table a frame, seq_sum at the codec's and the anchors'
+   grids, qtransfer f32 at the quality transfer's and the motion
+   compensation's shapes and bf16, roi_gather, and seven flash_attention
+   forms:
    llama3.2-1B's and chatglm3-6B's heads, a 1024 window, cross Sq != Sk,
    non-causal, ragged, f32 inputs) against its plain PyTorch version on
    the card, at its path's shapes, with its time, the plain version's
@@ -43,6 +45,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. parity: 64x96 chunks through the kernels on the card, every codec
    variant with and without the gate, held against the port's plain
    CPU path;
+6b. batched: nine 720p streams of the paper's mix, three chunks, through
+   roundtrip_batched and, in turns, nine roundtrip_chunk calls; the mixed
+   ladder (rungs 0-4), the padded form with the ROI gate, and the budget
+   search; each with its launches a chunk (those of one stream, whatever
+   the number of streams), frames/s and peak memory, its lanes held
+   against the single-stream runs; one batched chunk profiled in a
+   process of its own;
 7. lm: llama3.2-1B at full width and depth (random weights from a seed)
    serves two 4096-token requests: prefill through ``flash_attention``
    (16 launches a prefill, nothing else), 32 greedy decode steps over the
@@ -588,6 +597,136 @@ def check_blockdct(g) -> list[dict]:
                          reps=5, inner=1, warmup=1),
         bound_ms=b, bound_by=by, shape=f"{T}x{H}x{W}",
         **_timed(lambda: ops.inverse_raster(q, D, qt, H, W)), **common))
+    return out
+
+
+def check_blockdct_tables(g) -> dict:
+    """The forward with one table a frame at the anchor shape (30 frames of
+    720x1280, two tables in turns, as a mixed-ladder step or the budget
+    search gives them): bit for bit the launches of each table on its own
+    frames, its inverse the forward's rec; then its device time a launch
+    (CUDA graph) beside the one-table form's, in turns."""
+    import torch
+    from repro_torch.codec.blockdct import dct_matrix, quant_table
+    from repro_torch.kernels.blockdct import ops
+    dev = torch.device("cuda")
+    D = dct_matrix(8, dev)
+    frames = torch.rand((T, H_HD, W_HD), generator=g, device=dev) * 255 - 128
+    qualities = [QUALITIES[f % 2] for f in range(T)]
+    tables = quant_table(qualities, dev)
+    q, rec = ops.forward_quant_raster(frames, D, tables)
+    for i, quality in enumerate(QUALITIES):
+        q1, rec1 = ops.forward_quant_raster(frames[i::2].contiguous(), D,
+                                            quant_table(quality, dev))
+        if not (torch.equal(q[i::2], q1) and torch.equal(rec[i::2], rec1)):
+            raise AssertionError(f"blockdct per-frame tables: the q"
+                                 f"{quality:.0f} frames differ from a "
+                                 "launch at that table alone")
+    if not torch.equal(ops.inverse_raster(q, D, tables, H_HD, W_HD), rec):
+        raise AssertionError("blockdct per-frame tables: inverse(q) differs "
+                             "from the forward's rec")
+    qp, recp = ops.forward_quant_raster_plain(frames, D, tables)
+    torch.cuda.synchronize()
+    err, dq_sum, n = _hold_blockdct("blockdct per-frame tables", q, rec, qp,
+                                    recp)
+    one = quant_table(QUALITIES[1], dev)
+    same = one.expand(T, 8, 8).contiguous()
+    if not all(torch.equal(a, b) for a, b in zip(
+            ops.forward_quant_raster(frames, D, same),
+            ops.forward_quant_raster(frames, D, one))):
+        raise AssertionError("blockdct: one table repeated a frame differs "
+                             "from the (8, 8) form")
+    graphs = {}
+    for label, qt in (("tables", tables), ("one", one), ("tables", tables),
+                      ("one", one)):
+        graphs.setdefault(label, []).append(graph_ms(
+            lambda: ops.forward_quant_raster(frames, D, qt)))
+    print(f"[kernels] blockdct forward {T}x{H_HD}x{W_HD}, a table a frame "
+          f"(q{QUALITIES[0]:.0f}/q{QUALITIES[1]:.0f} in turns): == each "
+          "table's own launch and inverse(q) == rec, bit for bit; one table "
+          f"repeated == the (8, 8) form; mean|dq| {dq_sum / n:.2e} against "
+          f"the plain version; device "
+          f"{', '.join(f'{v * 1e3:.2f}' for v in graphs['tables'])} us a "
+          f"launch (CUDA graph) against the (8, 8) form's "
+          f"{', '.join(f'{v * 1e3:.2f}' for v in graphs['one'])} us, in "
+          "turns")
+    n_px = T * H_HD * W_HD
+    b, by = bound_ms(3 * n_px * F32 + tables.numel() * F32, n_px * 4 * 8 * 2)
+    return dict(
+        name="blockdct_forward", mode="forward_quant, a table a frame",
+        route="cuda", source=SOURCE + "blockdct.cu",
+        replaces="src/repro/kernels/blockdct/kernel.py:41", library_ms=None,
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        plain_ms=cuda_ms(lambda: ops.forward_quant_raster_plain(
+            frames, D, tables), reps=5, inner=1, warmup=1),
+        shape=f"{T}x{H_HD}x{W_HD} per-frame tables",
+        device_ms_one_table=graphs["one"][0],
+        form_path="batched_ladder",
+        **_timed(lambda: ops.forward_quant_raster(frames, D, tables)))
+
+
+# seq_sum's timed grids (lanes, rows, cols): the LR codec's 8x8-block bits
+# of 9 streams x 30 frames at 352x640, and the anchors' of 30 HD frames
+SEQ_SUM_SHAPES = ((270, 44, 80), (30, 90, 160))
+
+
+def _seq_sum_numpy(x):
+    """The reference's order on the host: each row left to right in f32,
+    then the row totals, one numpy f32 add a column (every lane and row
+    at once), then one a row."""
+    import numpy as np
+    rows = np.zeros(x.shape[:2], np.float32)
+    for c in range(x.shape[2]):
+        rows = (rows + x[:, :, c]).astype(np.float32)
+    total = np.zeros(x.shape[0], np.float32)
+    for r in range(x.shape[1]):
+        total = (total + rows[:, r]).astype(np.float32)
+    return total
+
+
+def check_seq_sum(g) -> list[dict]:
+    """The order-stable sum on the card: bit for bit its plain version
+    (one add a column) and a numpy f32 loop on the host, on grids of
+    widely scaled values (where the order shows) and on a grid with zero
+    padding (which must add nothing); timed at SEQ_SUM_SHAPES.
+    ``library_ms`` times ``torch.sum`` over the grid: the same sum, in
+    another order."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.seq_sum.ops import seq_sum, seq_sum_plain
+    dev = torch.device("cuda")
+    out = []
+    for shape in SEQ_SUM_SHAPES + ((3, 1, 200), (5, 200, 1), (4, 7, 13)):
+        L, R, C = shape
+        scale = 10.0 ** (torch.rand(shape, generator=g, device=dev) * 7 - 3)
+        x = torch.randn(shape, generator=g, device=dev) * scale
+        got = seq_sum(x)
+        plain = seq_sum_plain(x)
+        host = _seq_sum_numpy(x.cpu().numpy())
+        padded = seq_sum(torch.nn.functional.pad(x, (0, 5, 0, 3)))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and np.array_equal(got.cpu().numpy(),
+                                                           host)
+                and torch.equal(padded, got)):
+            raise AssertionError(f"seq_sum {shape}: the kernel, its plain "
+                                 "version and the host loop differ")
+        differs = int((got != x.sum(dim=(1, 2))).sum())
+        print(f"[kernels] seq_sum {L}x{R}x{C}: == plain version == numpy f32 "
+              f"loop, bit for bit; zero padding adds nothing; torch.sum "
+              f"differs in {differs} of {L} lanes")
+        if shape not in SEQ_SUM_SHAPES:
+            continue
+        b, by = bound_ms((L * R * C + L) * F32, L * R * C)
+        out.append(dict(
+            name="seq_sum", mode="lanes x rows x cols", route="cuda",
+            source=SOURCE + "seq_sum.cu",
+            replaces="src/repro/codec/blockdct.py:95 (seq_sum, lax.scan; "
+                     "no Pallas kernel)",
+            max_abs_err=0.0, bound_ms=b, bound_by=by,
+            plain_ms=cuda_ms(lambda: seq_sum_plain(x), reps=5, inner=1,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: x.sum(dim=(1, 2))),
+            shape=f"{L}x{R}x{C}", **_timed(lambda: seq_sum(x))))
     return out
 
 
@@ -1195,17 +1334,22 @@ def phase_chatglm3() -> dict:
     return launches
 
 
-def _streams():
-    from repro_torch.sim.video_source import StreamConfig
-    # the reference's paper_stream_mix (one sparse, one dense stream),
-    # object sizes and speeds scaled from its 96-px frames to 720 px
+def _streams(n: int = 2):
+    """The reference's paper_stream_mix of n streams (even ones sparse,
+    odd ones dense), object sizes and speeds scaled from its 96-px frames
+    to 720 px."""
+    import dataclasses
+    from repro_torch.sim.video_source import paper_stream_mix
     k = H_HD / 96
-    return [StreamConfig(name="sparse_0", height=H_HD, width=W_HD,
-                         n_objects=3, min_size=int(20 * k),
-                         max_size=int(32 * k), speed=1.5 * k, seed=100),
-            StreamConfig(name="dense_1", height=H_HD, width=W_HD,
-                         n_objects=12, min_size=int(10 * k),
-                         max_size=int(16 * k), speed=3.0 * k, seed=201)]
+    return [dataclasses.replace(sc, min_size=int(sc.min_size * k),
+                                max_size=int(sc.max_size * k),
+                                speed=sc.speed * k)
+            for sc in paper_stream_mix(n, H_HD, W_HD)]
+
+
+# seq_sum launches a chunk, for any number of streams: the encode's bits and
+# its two features (2), the video bits, the anchors' bits and their total
+SEQ_SUMS = 5
 
 
 def path_configs(det_cfg) -> dict:
@@ -1217,13 +1361,14 @@ def path_configs(det_cfg) -> dict:
     return {
         "main": (RoundtripConfig(level=LEVEL, det_cfg=det_cfg),
                  {"motion_sad": T - 1, "blockdct_forward": T + 1,
-                  "blockdct_inverse": 1, "qtransfer": T}),
+                  "blockdct_inverse": 1, "qtransfer": T,
+                  "seq_sum": SEQ_SUMS}),
         "roi": (RoundtripConfig(level=LEVEL, det_cfg=det_cfg,
                                 codec=VideoCodecConfig(**ROI_CODEC),
                                 roi=RoiConfig(**ROI)),
                 {"motion_sad_diamond_bf16": T - 1, "roi_gather": 1,
                  "blockdct_forward": T + 1, "blockdct_inverse": 1,
-                 "qtransfer": T})}
+                 "qtransfer": T, "seq_sum": SEQ_SUMS})}
 
 
 def run_paths(params, paths: dict) -> dict:
@@ -1333,7 +1478,8 @@ def phase_profile(tag: str, params, cfg) -> None:
 # the __global__ functions of the port's kernel sources
 PORT_KERNELS = ("motion_sad_exhaustive_kernel", "motion_sad_diamond_kernel",
                 "forward_quant_kernel", "inverse_kernel",
-                "qtransfer_kernel", "roi_gather_kernel", "flash_fwd_kernel")
+                "qtransfer_kernel", "roi_gather_kernel", "flash_fwd_kernel",
+                "seq_sum_kernel")
 
 
 def _print_profile(label: str, prof, wall: float, rows_shown: int = 12):
@@ -1484,6 +1630,270 @@ def phase_small_parity(params, det_cfg) -> dict:
     return launches
 
 
+# [batched]: the paper's nine 30 fps cameras on one card, at mixed rungs
+BATCHED_STREAMS = 9
+BATCHED_LEVELS = (0, 1, 2, 3, 4, 0, 1, 2, 3)
+BATCHED_CHUNKS = 3
+FLOOR_FPS = 270.0             # nine real-time streams (PERF.md section 2)
+# the launches a chunk of each kernel form, whatever the number of streams
+MAIN_LAUNCHES = {"motion_sad": T - 1, "blockdct_forward": T + 1,
+                 "blockdct_inverse": 1, "qtransfer": T, "seq_sum": SEQ_SUMS}
+ROI_LAUNCHES = {"motion_sad_diamond_bf16": T - 1, "roi_gather": 1,
+                "blockdct_forward": T + 1, "blockdct_inverse": 1,
+                "qtransfer": T, "seq_sum": SEQ_SUMS}
+# with the budget search the anchors take one forward a rung and one at the
+# chosen rungs, and seq_sum the six rungs' bits (in place of the pinned
+# anchors') and the anchor count
+SEARCH_LAUNCHES = dict(MAIN_LAUNCHES, blockdct_forward=T + 6 + 1,
+                       seq_sum=SEQ_SUMS + 6)
+# floats of a batched lane against its single-stream run: the [parity]
+# tolerances (cuDNN may take another algorithm for 270 frames than for 30)
+LANE_TOL = {"total_bits": dict(rtol=1e-4, atol=0),
+            "video_bits": dict(rtol=1e-4, atol=0),
+            "anchor_bits": dict(rtol=1e-4, atol=0),
+            "scores": dict(rtol=0, atol=1e-4), "boxes": dict(rtol=0, atol=1e-2),
+            "f1": dict(rtol=0, atol=1e-6), "mean_f1": dict(rtol=0, atol=1e-6),
+            "latency": dict(rtol=1e-5, atol=0),
+            "t_trans": dict(rtol=1e-5, atol=0),
+            "t_comp": dict(rtol=0, atol=0), "t_queue": dict(rtol=0, atol=0)}
+
+
+def _batched_chunks():
+    """BATCHED_CHUNKS consecutive chunks of the nine streams, rendered by
+    ``generate_chunk_batched`` a signature group at a time; ground truth
+    padded to the densest stream's object count (the pad invalid)."""
+    import torch
+    from repro_torch.sim.video_source import (generate_chunk_batched,
+                                              group_by_signature)
+    mix = _streams(BATCHED_STREAMS)
+    n_max = max(sc.n_objects for sc in mix)
+    chunks = []
+    for c in range(BATCHED_CHUNKS):
+        raw = torch.empty((len(mix), T, H_HD, W_HD), device="cuda")
+        gtb = torch.zeros((len(mix), T, n_max, 4), device="cuda")
+        gtv = torch.zeros((len(mix), T, n_max), dtype=torch.bool,
+                          device="cuda")
+        for (_, _, n), idx in group_by_signature(mix).items():
+            f, b, v = generate_chunk_batched([mix[i] for i in idx], c * T, T)
+            raw[idx], gtb[idx, :, :n], gtv[idx, :, :n] = f, b, v
+        chunks.append((raw, gtb, gtv))
+    torch.cuda.synchronize()
+    return mix, chunks
+
+
+def _hold_lanes(tag: str, out: dict, singles: list) -> None:
+    """Each lane of a batched run against its stream's single-stream run:
+    the frame types and anchor qualities exactly, the floats bit for bit
+    or within LANE_TOL; prints how many lanes were bit for bit equal."""
+    import torch
+    equal, differ = 0, set()
+    for s, one in enumerate(singles):
+        if set(out) != set(one):
+            raise AssertionError(f"[batched] {tag}: keys differ")
+        for k in ("types", "anchor_q"):
+            if not torch.equal(out[k][s], one[k]):
+                raise AssertionError(f"[batched] {tag} lane {s}: {k} "
+                                     f"{out[k][s].tolist()} vs "
+                                     f"{one[k].tolist()}")
+        keys = [k for k in one if not torch.equal(out[k][s], one[k])]
+        for k in keys:
+            torch.testing.assert_close(out[k][s], one[k], **LANE_TOL[k],
+                                       msg=f"[batched] {tag} lane {s}: {k}")
+        equal += not keys
+        differ.update(keys)
+    print(f"[batched] {tag}: {equal} of {len(singles)} lanes bit for bit "
+          f"the single-stream run; the others within the [parity] "
+          f"tolerances in {sorted(differ) or 'nothing'}; frame types and "
+          "anchor qualities exact")
+
+
+def _batched_bandwidths(raw, out) -> list:
+    """A bandwidth a stream (kbps) at which its anchors' even share of the
+    spare bits is the median of their bits at rung 3: some anchors fit
+    rung 3 and some do not, so the search picks several rungs."""
+    import torch
+    from repro_torch.codec.image_codec import ladder_bits
+    bws = []
+    for s in range(raw.shape[0]):
+        anchors = torch.nonzero(out["types"][s] == 1).flatten()
+        target = float(ladder_bits(raw[s, anchors])[:, 3].median())
+        bws.append((target * len(anchors) + float(out["video_bits"][s]))
+                   / (1000.0 * T / 30.0))
+    return bws
+
+
+def phase_batched(params, det_cfg) -> dict:
+    """[batched]: nine streams of paper_stream_mix(9) at 720p, three chunks,
+    in five runs: (1) roundtrip_batched at rung 2 and (2) nine
+    roundtrip_chunk calls on the same chunks, in turns; (3)
+    roundtrip_ladder_batched at BATCHED_LEVELS; (4) roundtrip_padded_batched
+    on the full LR canvas with the [roi] gate; (5) (1) with the budget
+    search at bandwidths that make it pick several rungs.  Each run's
+    launches a chunk must be a single stream's; its lanes are held against
+    the single-stream runs.  Returns each run's launch counts."""
+    import collections
+    import dataclasses
+    import torch
+    from repro_torch.codec.rate_model import (QUALITY_LADDER, downscale,
+                                              ladder_lr_shape)
+    from repro_torch.codec.video_codec import VideoCodecConfig
+    from repro_torch.core.roi import RoiConfig
+    from repro_torch.core import roundtrip as RT
+    from repro_torch.kernels import build
+    mix, chunks = _batched_chunks()
+    S = len(mix)
+    main = RT.RoundtripConfig(level=LEVEL, det_cfg=det_cfg)
+    roi = dataclasses.replace(main, codec=VideoCodecConfig(**ROI_CODEC),
+                              roi=RoiConfig(**ROI))
+    search = dataclasses.replace(main, anchor_search=True)
+    kw = dict(tr1=TR1, tr2=TR2, queue_delay=0.0)
+    hp, wp = RT.full_lr_canvas(H_HD, W_HD)
+
+    def padded(raw, gtb, gtv, cfg, **k):
+        lr_pad = torch.stack([torch.nn.functional.pad(
+            downscale(raw[s], QUALITY_LADDER[level].scale),
+            (0, wp - w, 0, hp - h)) for s, (level, (h, w)) in enumerate(
+                (lv, ladder_lr_shape(lv, H_HD, W_HD))
+                for lv in BATCHED_LEVELS)])
+        ext, qual = RT.ladder_batch_arrays(BATCHED_LEVELS, H_HD, W_HD)
+        return RT.roundtrip_padded_batched(raw, lr_pad, ext, qual, gtb, gtv,
+                                           params, cfg=cfg, **k)
+
+    def sequential(raw, gtb, gtv, cfg, bw_kbps, levels=None):
+        return [RT.roundtrip_chunk(
+            raw[s], gtb[s], gtv[s], params, cfg=cfg if levels is None else
+            dataclasses.replace(cfg, level=levels[s]), bw_kbps=bw_kbps[s],
+            **kw) for s in range(S)]
+
+    bw = [6000.0] * S
+    runs = {
+        "batched": (MAIN_LAUNCHES, lambda r, b, v, bw: RT.roundtrip_batched(
+            r, b, v, params, cfg=main, bw_kbps=bw, **kw)),
+        "sequential": ({k: S * n for k, n in MAIN_LAUNCHES.items()},
+                       lambda r, b, v, bw: sequential(r, b, v, main, bw)),
+        "ladder": (MAIN_LAUNCHES, lambda r, b, v, bw:
+                   RT.roundtrip_ladder_batched(
+                       r, b, v, params, levels=BATCHED_LEVELS, cfg=main,
+                       bw_kbps=bw, **kw)),
+        "padded_roi": (ROI_LAUNCHES, lambda r, b, v, bw: padded(
+            r, b, v, roi, bw_kbps=bw, **kw)),
+        "search": (SEARCH_LAUNCHES, lambda r, b, v, bw: RT.roundtrip_batched(
+            r, b, v, params, cfg=search, bw_kbps=bw, **kw)),
+    }
+    ms = {tag: [] for tag in runs}
+    launches = {tag: collections.Counter() for tag in runs}
+    peak = dict.fromkeys(runs, 0)
+    outs = {}
+    for tag, (per_chunk, run) in runs.items():
+        if tag == "search":
+            bw = _batched_bandwidths(chunks[0][0], outs["batched"][0])
+            print(f"[batched] search: bandwidths a stream "
+                  f"{[round(b, 1) for b in bw]} kbps")
+        # (1) and (2) in turns, chunk by chunk
+        order = [] if tag == "sequential" else [tag] + (
+            ["sequential"] if tag == "batched" else [])
+        for c, (raw, gtb, gtv) in enumerate(chunks):
+            for t in order:
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                out = runs[t][1](raw, gtb, gtv, bw)
+                torch.cuda.synchronize()
+                ms[t].append((time.perf_counter() - t0) * 1e3)
+                peak[t] = max(peak[t], torch.cuda.max_memory_allocated())
+                launches[t].update(build.LAUNCHES)
+                _expect_launches(f"[batched] {t} chunk {c}", runs[t][0])
+                outs.setdefault(t, []).append(out)
+        if tag == "sequential":
+            continue
+        for out in outs[tag]:
+            for k, v in out.items():
+                if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                    raise AssertionError(f"[batched] {tag}: {k} not finite")
+            if out["boxes"].shape != (S, T, (H_HD // 8) * (W_HD // 8), 4) \
+                    or not bool((out["types"][:, 0] == 1).all()):
+                raise AssertionError(f"[batched] {tag}: bad output")
+        mix_ = [[int((outs[tag][0]["types"][s] == k).sum()) for k in (1, 2, 3)]
+                for s in range(S)]
+        print(f"[batched] {tag} chunk 0 pipelines by stream: {mix_}")
+
+    # each run's lanes against the single-stream path
+    for c in range(BATCHED_CHUNKS):
+        seq = outs["sequential"][c]
+        _hold_lanes(f"batched chunk {c} vs 9 roundtrip_chunk calls",
+                    outs["batched"][c], seq)
+    raw, gtb, gtv = chunks[0]
+    _hold_lanes("ladder chunk 0", outs["ladder"][0], sequential(
+        raw, gtb, gtv, main, [6000.0] * S, BATCHED_LEVELS))
+    _hold_lanes("padded_roi chunk 0", outs["padded_roi"][0], sequential(
+        raw, gtb, gtv, roi, [6000.0] * S, BATCHED_LEVELS))
+    _hold_lanes("search chunk 0", outs["search"][0], sequential(
+        raw, gtb, gtv, search, bw))
+    for c, out in enumerate(outs["search"]):
+        rungs = out["anchor_q"].tolist()
+        print(f"[batched] search chunk {c}: anchor qualities by stream "
+              f"{[[q for q in r if q] for r in rungs]}")
+    picked = {q for r in outs["search"][0]["anchor_q"].tolist() for q in r
+              if q}
+    if len(picked) < 2:
+        raise AssertionError(f"[batched] search picked one rung: {picked}")
+    # the fused search against the per-anchor oracle, two streams
+    for s in range(2):
+        fused = outs["search"][0]
+        oracle = RT.roundtrip_oracle(raw[s], gtb[s], gtv[s], params,
+                                     cfg=search, bw_kbps=bw[s], **kw)
+        for k in ("types", "anchor_q", "anchor_bits", "video_bits"):
+            if not torch.equal(fused[k][s], oracle[k]):
+                raise AssertionError(f"[batched] search stream {s}: {k} "
+                                     "differs from roundtrip_oracle")
+        same = [k for k in oracle if torch.equal(fused[k][s], oracle[k])]
+        print(f"[batched] search stream {s} == roundtrip_oracle: rungs, "
+              f"anchor_q and anchor_bits bit for bit ({len(same)} of "
+              f"{len(oracle)} keys bit for bit)")
+
+    for tag in runs:
+        n = len(ms[tag])
+        per = {k: v / n for k, v in sorted(launches[tag].items())}
+        steady = statistics.median(ms[tag][1:])
+        print(f"[batched] {tag}: {n} chunks of {S}x{T}x{H_HD}x{W_HD}: "
+              f"first {ms[tag][0]:.1f} ms, median of the rest {steady:.1f} ms "
+              f"(range {min(ms[tag][1:]):.1f}-{max(ms[tag][1:]):.1f}), "
+              f"{S * T / steady * 1e3:.1f} frames/s against the "
+              f"{FLOOR_FPS:.0f} frames/s floor; launches a chunk {per}, "
+              f"{sum(per.values()):.0f} in all; peak device memory "
+              f"{peak[tag] / 2**30:.2f} GiB")
+    return {f"batched_{tag}": dict(n) for tag, n in launches.items()}
+
+
+def phase_profile_batched(params, det_cfg) -> None:
+    """One batched chunk of the nine streams (roundtrip_batched at rung 2)
+    under torch.profiler, after two unprofiled chunks, in a process of its
+    own (``--profile batched``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import roundtrip as RT
+    _, chunks = _batched_chunks()
+    cfg = RT.RoundtripConfig(level=LEVEL, det_cfg=det_cfg)
+    kw = dict(tr1=TR1, tr2=TR2, bw_kbps=6000.0, queue_delay=0.0, cfg=cfg)
+    warm = []
+    for raw, gtb, gtv in chunks[:2]:
+        t0 = time.perf_counter()
+        RT.roundtrip_batched(raw, gtb, gtv, params, **kw)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    print(f"[profile] batched: alone in a process, unprofiled chunks "
+          f"{', '.join(f'{v:.1f}' for v in warm)} ms")
+    raw, gtb, gtv = chunks[2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        RT.roundtrip_batched(raw, gtb, gtv, params, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _print_profile(f"batched: one chunk {BATCHED_STREAMS}x{T}x{H_HD}x{W_HD}",
+                   prof, wall)
+
+
 def profile_in_child(tag: str) -> None:
     """``phase_profile`` of one path in a fresh process; its lines are
     printed here."""
@@ -1510,6 +1920,8 @@ def main(argv) -> int:
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
             phase_profile_lm()
+        elif argv[1] == "batched":
+            phase_profile_batched(params, det_cfg)
         else:
             phase_profile(argv[1], params, paths[argv[1]][0])
         return 0
@@ -1526,8 +1938,10 @@ def main(argv) -> int:
     check_blockdct_sweep(torch.Generator(device="cuda").manual_seed(3))
     check_qtransfer_sweep(torch.Generator(device="cuda").manual_seed(4))
     g = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [*check_motion_sad(g), *check_blockdct(g), *check_qtransfer(g),
-               check_roi_gather(g), *check_flash_attention(g)]
+    kernels = [*check_motion_sad(g), *check_blockdct(g),
+               check_blockdct_tables(g), *check_seq_sum(g),
+               *check_qtransfer(g), check_roi_gather(g),
+               *check_flash_attention(g)]
     for k in kernels:
         lib = "" if k["library_ms"] is None \
             else f", library {k['library_ms'] * 1e3:.1f} us"
@@ -1549,6 +1963,8 @@ def main(argv) -> int:
         profile_in_child(tag)
     phase_admit_all(params, paths["roi"][0])
     launches["parity"] = phase_small_parity(params, det_cfg)
+    launches.update(phase_batched(params, det_cfg))
+    profile_in_child("batched")
     del params
     launches["lm"] = phase_lm()
     profile_in_child("lm")

@@ -7,7 +7,13 @@ and raster reconstructions out, through the ``blockdct`` kernel's wrappers,
 which launch the CUDA kernel on CUDA tensors and run the plain PyTorch
 version on CPU tensors.  ``dct_quantize``/``dequant_idct`` take tiles in
 block order.  ``dct2``/``idct2``/``quantize_with_table`` are the codec's
-plain pieces, kept for the parity tests and the oracle.
+plain pieces, kept for the parity tests and the oracle.  The transform
+entries take one (8, 8) quantisation table, or one a frame.
+
+``seq_sum`` is the reference's order-stable sum (the ``seq_sum`` kernel on
+CUDA), and ``entropy_bits`` charges bits only for the blocks a mask keeps:
+zeroed padding is then an exact no-op, which the mixed-ladder encode's
+lanes need to equal the unpadded encode.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.kernels.blockdct import ops as blockdct_ops
 from repro_torch.kernels.blockdct.ops import blockify, unblockify  # noqa: F401
+from repro_torch.kernels.seq_sum import ops as seq_sum_ops
 
 f32 = torch.float32
 
@@ -58,8 +65,10 @@ def quality_scale(quality):
 
 
 def quant_table(quality, device=None):
-    """The (8, 8) f32 quantization table for a quality factor."""
-    qtab = torch.from_numpy(JPEG_LUMA_Q50) * quality_scale(quality)
+    """The (8, 8) f32 quantization table for a quality factor, or (..., 8,
+    8) tables for a tensor (or sequence) of them, computed on the CPU."""
+    scale = quality_scale(torch.as_tensor(quality, dtype=f32).cpu())
+    qtab = torch.from_numpy(JPEG_LUMA_Q50) * scale[..., None, None]
     return qtab.clamp(min=1.0).to(device)
 
 
@@ -81,25 +90,37 @@ def dequantize(qcoefs, qtab):
     return qcoefs * qtab
 
 
+def _frame_tables(qtab, lead):
+    """One (8, 8) table, or a table a frame: (..., 8, 8) tables
+    broadcast over the frames' leading axes ``lead`` and flattened to
+    (F, 8, 8).  A batch of one table is the (8, 8) form."""
+    if qtab.dim() == 2 or qtab.shape[:-2].numel() == 1:
+        return qtab.reshape(8, 8).contiguous()
+    return qtab.expand(*lead, 8, 8).reshape(-1, 8, 8).contiguous()
+
+
 def dct_quantize_raster(frames, qtab):
     """(..., H, W) frames, H and W multiples of 8 -> (q (..., nb, 8, 8) in
     block order, rec (..., H, W) in raster): quantised DCT coefficients
     and the dequantised inverse transform, in ONE blockdct launch for
-    every frame."""
+    every frame.  qtab: (8, 8), or tables broadcast over the leading axes
+    (one a stream, one a frame)."""
     *lead, H, W = frames.shape
     q, rec = blockdct_ops.forward_quant_raster(
         frames.reshape(-1, H, W).contiguous(),
-        dct_matrix(8, frames.device), qtab)
+        dct_matrix(8, frames.device), _frame_tables(qtab, lead))
     return q.reshape(*lead, -1, 8, 8), rec.reshape(frames.shape)
 
 
 def dequant_idct_raster(q, qtab, H: int, W: int):
     """(..., nb, 8, 8) quantised coefficients in block order -> (..., H, W)
-    pixel-domain frames, in ONE blockdct inverse launch."""
+    pixel-domain frames, in ONE blockdct inverse launch; qtab as for
+    :func:`dct_quantize_raster`."""
+    lead = q.shape[:-3]
     rec = blockdct_ops.inverse_raster(
         q.reshape(-1, *q.shape[-3:]).contiguous(), dct_matrix(8, q.device),
-        qtab, H, W)
-    return rec.reshape(*q.shape[:-3], H, W)
+        _frame_tables(qtab, lead), H, W)
+    return rec.reshape(*lead, H, W)
 
 
 def dct_quantize(blocks, qtab):
@@ -121,26 +142,44 @@ def dequant_idct(q, qtab):
 
 
 def seq_sum(v, dims: int | None = None):
-    """Sum over the trailing ``dims`` axes (default: all of a 1-D vector
-    or 2-D grid): a 2-D grid sums its rows, then the row totals.
-
-    The reference scans strictly left to right so that the masked
-    mixed-ladder encode is bit-exact against the unpadded one; the single
-    stream path that the port runs does not depend on that order."""
+    """The reference's order-stable sum over the trailing ``dims`` axes
+    (default: all of a 1-D vector or 2-D grid), in f32: a vector is one
+    strict left-to-right scan; a 2-D grid scans each row, then the row
+    totals.  Leading axes are independent lanes (streams x frames), all
+    summed in ONE ``seq_sum`` launch on CUDA.  Zero padding appended to
+    the rows or as whole rows adds exact no-ops, so a padded grid sums
+    bit for bit as the unpadded one."""
     dims = v.dim() if dims is None else dims
-    if dims == 2:
-        return v.to(f32).sum(-1).sum(-1)
-    return v.to(f32).sum(-1)
+    lead = v.shape[:v.dim() - dims]
+    grid = v.to(f32).reshape(-1, *((1, v.shape[-1]) if dims == 1
+                                   else v.shape[-2:]))
+    return seq_sum_ops.seq_sum(grid).reshape(lead)
 
 
-def entropy_bits(qcoefs, grid=None):
-    """Bit-cost proxy: 2*log2(1+|q|)+1 per nonzero coefficient plus 4 bits
-    per block.  qcoefs: (..., nb, 8, 8) -> (...); ``grid`` is the frame's
-    (block_rows, block_cols) 8x8 block grid."""
+def block_bits(qcoefs, block_mask=None):
+    """Each block's share of :func:`entropy_bits` (without the 4-bit
+    per-block overhead): (..., nb, 8, 8) -> (..., nb), zero where
+    ``block_mask`` ((..., nb) bool) is False."""
     a = qcoefs.abs()
     bits = torch.where(a > 0, 2.0 * torch.log2(1.0 + a) + 1.0, 0.0)
-    per_block = bits.sum(dim=(-2, -1))
-    overhead = qcoefs.shape[-3] * 4.0
+    per_block = bits.sum(dim=(-2, -1))          # a fixed (8, 8) tile reduce
+    if block_mask is not None:
+        per_block = torch.where(block_mask, per_block, 0.0)
+    return per_block
+
+
+def entropy_bits(qcoefs, block_mask=None, n_blocks=None, grid=None):
+    """Bit-cost proxy: 2*log2(1+|q|)+1 per nonzero coefficient plus 4 bits
+    per block.  qcoefs: (..., nb, 8, 8) -> (...); ``grid`` is the frame's
+    (block_rows, block_cols) 8x8 block grid.  ``block_mask`` ((..., nb)
+    bool) with ``n_blocks`` (the valid blocks' count, a number or a (...)
+    tensor) charges only the valid blocks of a padded frame."""
+    per_block = block_bits(qcoefs, block_mask)
+    if block_mask is not None:
+        overhead = torch.as_tensor(n_blocks, dtype=f32,
+                                   device=qcoefs.device) * 4.0
+    else:
+        overhead = qcoefs.shape[-3] * 4.0
     if grid is not None:
         per_block = per_block.reshape(*per_block.shape[:-1], *grid)
         return seq_sum(per_block, 2) + overhead

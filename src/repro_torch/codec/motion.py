@@ -87,3 +87,10 @@ def warp_blocks(ref, mv):
         return warp_blocks(ref[None], mv[None])[0]
     return qtransfer(ref.to(f32).contiguous(), mv.to(torch.int32).contiguous(),
                      edge="pixel")
+
+
+def accumulate_mv(mvs):
+    """Chain frame-to-previous MVs into anchor-relative ones by summation
+    (paper Fig. 7): mvs (..., T, nby, nbx, 2) int32 -> its running sum
+    over the frame axis, int32."""
+    return torch.cumsum(mvs, dim=-4, dtype=torch.int32)

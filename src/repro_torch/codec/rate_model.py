@@ -47,12 +47,20 @@ def downscale(frames, scale: float):
 
 
 def upscale_nearest(frames, H: int, W: int, src_hw=None):
-    """(T, h, w) -> (T, H, W) nearest-neighbour, index-mapped so
-    non-integer factors work exactly.  ``src_hw`` ((h, w)) overrides the
-    source extent when ``frames`` carries a margin beyond the valid
-    region."""
-    h, w = frames.shape[1:] if src_hw is None else src_hw
+    """(..., h, w) -> (..., H, W) nearest-neighbour, index-mapped so
+    non-integer factors work exactly: one gather.  ``src_hw`` overrides
+    the source extent when ``frames`` carries a margin beyond the valid
+    region: one (h, w), or an (S, 2) tensor of them, one a stream of a
+    leading stream axis (a mixed-ladder padded canvas)."""
     dev = frames.device
-    yi = (torch.arange(H, device=dev) * h // H).clamp(0, h - 1)
-    xi = (torch.arange(W, device=dev) * w // W).clamp(0, w - 1)
-    return frames[:, yi][:, :, xi]
+    hc, wc = frames.shape[-2:]
+    ext = torch.as_tensor((hc, wc) if src_hw is None else src_hw,
+                          device=dev).long().reshape(-1, 2)
+    S = ext.shape[0]
+    h, w = ext[:, 0:1], ext[:, 1:2]                       # (S, 1)
+    yi = torch.minimum(torch.arange(H, device=dev)[None] * h // H, h - 1)
+    xi = torch.minimum(torch.arange(W, device=dev)[None] * w // W, w - 1)
+    x = frames.reshape(S, -1, hc * wc)
+    idx = (yi[:, :, None] * wc + xi[:, None, :]).reshape(S, 1, H * W)
+    return x.gather(2, idx.expand(S, x.shape[1], H * W)).reshape(
+        *frames.shape[:-2], H, W)

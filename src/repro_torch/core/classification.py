@@ -15,30 +15,39 @@ import torch
 
 
 def classify_frames(frame_diff, residual_mag, tr1, tr2):
-    """frame_diff/residual_mag: (T,) per-frame codec features (normalized).
+    """frame_diff/residual_mag: (..., T) per-frame codec features
+    (normalized); tr1/tr2: thresholds, one or one a lane of the leading
+    axes (one a stream).
 
-    Returns (types (T,) int32 in {1,2,3}, X (T,), R (T,)) on the inputs'
+    Returns (types (..., T) int32 in {1,2,3}, X, R) on the inputs'
     device, X/R being the accumulated features compared against the
     thresholds.  The loop runs on the host in f32, as the reference's scan
-    does: T is a chunk's frame count, and it costs one copy to the host.
+    does, every lane at once: T is a chunk's frame count, and it costs one
+    copy to the host.
     """
     fd = frame_diff.detach().to("cpu", torch.float32).numpy()
     rm = residual_mag.detach().to("cpu", torch.float32).numpy()
-    tr1, tr2 = np.float32(tr1), np.float32(tr2)
-    T = fd.shape[0]
-    types = np.zeros(T, np.int32)
-    X = np.zeros(T, np.float32)
-    R = np.zeros(T, np.float32)
-    acc_x = acc_r = np.float32(0.0)
+    lead, T = fd.shape[:-1], fd.shape[-1]
+
+    def per_lane(tr):
+        tr = torch.as_tensor(tr).detach().to("cpu", torch.float32).numpy()
+        return np.broadcast_to(tr, lead).astype(np.float32)
+
+    tr1, tr2 = per_lane(tr1), per_lane(tr2)
+    types = np.zeros(fd.shape, np.int32)
+    X = np.zeros(fd.shape, np.float32)
+    R = np.zeros(fd.shape, np.float32)
+    acc_x = np.zeros(lead, np.float32)
+    acc_r = np.zeros(lead, np.float32)
     for i in range(T):
-        X[i] = acc_x + fd[i]
-        R[i] = acc_r + rm[i]
-        is1 = X[i] > tr1 or i == 0      # chunk I-frame is always an anchor
-        is2 = not is1 and R[i] > tr2
-        types[i] = 1 if is1 else (2 if is2 else 3)
-        inferred = types[i] != 3
-        acc_x = np.float32(0.0) if inferred else X[i]
-        acc_r = np.float32(0.0) if inferred else R[i]
+        X[..., i] = acc_x + fd[..., i]
+        R[..., i] = acc_r + rm[..., i]
+        is1 = (X[..., i] > tr1) | (i == 0)   # the I-frame is an anchor
+        is2 = ~is1 & (R[..., i] > tr2)
+        types[..., i] = np.where(is1, 1, np.where(is2, 2, 3))
+        inferred = types[..., i] != 3
+        acc_x = np.where(inferred, np.float32(0.0), X[..., i])
+        acc_r = np.where(inferred, np.float32(0.0), R[..., i])
     dev = frame_diff.device
     return (torch.from_numpy(types).to(dev), torch.from_numpy(X).to(dev),
             torch.from_numpy(R).to(dev))

@@ -1,6 +1,6 @@
 """Hybrid decoder + the 3 execution pipelines, paper §IV-B Fig. 6 (port of
-``repro.core.hybrid_decoder``: the single-stream decode-execute, full
-frame or ROI-gated).
+``repro.core.hybrid_decoder``: the decode-execute of one stream or of S
+streams at once, full frame or ROI-gated).
 
 Pipeline ①: decoded HD anchors -> DNN inference
 Pipeline ②: LR frame -> quality transfer from anchors -> DNN inference
@@ -8,14 +8,21 @@ Pipeline ③: no decode, cached detections shifted by mean MV (reuse)
 
 Latency model (paper Fig. 13b): transmission = bits / allocated bandwidth,
 queueing from the serving queues, compute from per-pipeline costs.
+
+``_execute_chunk`` takes a leading stream axis on every input: the inverse
+transform, the quality transfer and the detector forward each run once
+over all S streams' frames, and the reuse loop is T steps for any S.
+``lr_extent`` ((S, 2) valid LR extents) decodes a mixed-ladder padded
+encode: the index maps then read only each stream's valid region, so a
+lane equals the decode of its unpadded encode.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
+from repro_torch.codec.motion import accumulate_mv
 from repro_torch.codec.rate_model import upscale_nearest
 from repro_torch.core.quality_transfer import (residual_to_pixels,
                                                transfer_frame)
@@ -48,87 +55,116 @@ def pipeline_cost(n1, n2, n3, costs: PipelineCosts = PipelineCosts()):
 
 
 def anchor_index(types):
-    """For each frame i, the largest j <= i with types[j] == 1 (frame 0 if
-    none): a cumulative max over the marked indices."""
-    idx = torch.arange(types.shape[0], dtype=torch.int32, device=types.device)
+    """For each frame i, the largest j <= i with types[..., j] == 1 (frame
+    0 if none): a cumulative max over the marked indices, along the last
+    axis."""
+    idx = torch.arange(types.shape[-1], dtype=torch.int32,
+                       device=types.device)
     marked = torch.where(types == 1, idx, -1)
-    return torch.cummax(marked, dim=0).values.clamp(min=0)
+    return torch.cummax(marked, dim=-1).values.clamp(min=0)
 
 
 def _detect(detector_params, det_cfg, frames):
-    raw = D.forward(detector_params, det_cfg, frames)
-    return D.decode_boxes(raw, det_cfg)
+    """(..., H, W) frames -> (boxes (..., Nc, 4), scores (..., Nc)), one
+    forward over every frame."""
+    *lead, H, W = frames.shape
+    raw = D.forward(detector_params, det_cfg, frames.reshape(-1, H, W))
+    boxes, scores = D.decode_boxes(raw, det_cfg)
+    return (boxes.reshape(*lead, *boxes.shape[1:]),
+            scores.reshape(*lead, scores.shape[1]))
 
 
 def _residual_px(enc: EncodedChunk):
-    """(T, h, w) decoded residuals of every frame, one blockdct inverse."""
-    h, w = enc.recon.shape[1:]
-    return residual_to_pixels(enc.residual_q, enc.qtab, h, w)
+    """(S, T, h, w) decoded residuals of every frame of every stream, one
+    blockdct inverse at each stream's table."""
+    h, w = enc.recon.shape[-2:]
+    return residual_to_pixels(enc.residual_q, enc.qtab[:, None], h, w)
 
 
-def _upscale_mvs(mv, hw):
-    """LR MVs -> HD block grid + magnitude rescale (Fig. 7 step 2)."""
+def _upscale_mvs(mv, hw, lr_hw=None):
+    """LR MVs (..., T, nby, nbx, 2) -> the HD block grid, magnitudes
+    rescaled (Fig. 7 step 2).  ``lr_hw`` is the valid LR extent, (h, w)
+    or (S, 2) of them, one a stream of a leading stream axis, when ``mv``
+    carries a padded canvas's macroblocks; the scale factors are f32
+    divisions in either form, as the reference computes them."""
     H, W = hw
     nby, nbx = H // 16, W // 16
-    T, nby_lr, nbx_lr, _ = mv.shape
+    nby_p, nbx_p = mv.shape[-3:-1]
     dev = mv.device
-    yi = (torch.arange(nby, device=dev) * nby_lr // nby).clamp(0, nby_lr - 1)
-    xi = (torch.arange(nbx, device=dev) * nbx_lr // nbx).clamp(0, nbx_lr - 1)
-    mvu = mv[:, yi][:, :, xi].to(f32)
-    # the scale factors rounded to f32, as the reference computes them
-    sy = float(np.float32(H) / (np.float32(nby_lr) * np.float32(16.0)))
-    sx = float(np.float32(W) / (np.float32(nbx_lr) * np.float32(16.0)))
-    scaled = torch.stack([mvu[..., 0] * sy, mvu[..., 1] * sx], dim=-1)
-    return torch.round(scaled).to(torch.int32)
+    if lr_hw is None:
+        n_lr = torch.tensor([[nby_p, nbx_p]], device=dev)
+    else:
+        n_lr = torch.as_tensor(lr_hw, device=dev).long().reshape(-1, 2) // 16
+    S = n_lr.shape[0]
+    ny, nx = n_lr[:, 0:1], n_lr[:, 1:2]                   # (S, 1)
+    yi = torch.minimum(torch.arange(nby, device=dev)[None] * ny // nby,
+                       ny - 1)
+    xi = torch.minimum(torch.arange(nbx, device=dev)[None] * nx // nbx,
+                       nx - 1)
+    lead = mv.shape[:-3]
+    m = mv.reshape(S, -1, nby_p * nbx_p, 2)
+    idx = (yi[:, :, None] * nbx_p + xi[:, None, :]).reshape(S, 1, -1, 1)
+    mvu = m.gather(2, idx.expand(S, m.shape[1], -1, 2)).to(f32)
+    scale = torch.tensor([H, W], dtype=f32, device=dev) \
+        / (n_lr.to(f32) * 16.0)                           # (S, 2)
+    scaled = mvu * scale[:, None, None, :]
+    return torch.round(scaled).to(torch.int32).reshape(*lead, nby, nbx, 2)
 
 
 def _transfer(anchor_plane, anchor_idx, mvs_hd, residual_up, frames, types):
-    """Pipeline ② for every frame of the chunk in one qtransfer launch,
-    kept where types == 2."""
-    cum = torch.cumsum(mvs_hd, dim=0, dtype=torch.int32)
-    mv_rel = cum - cum[anchor_idx.long()]
-    enhanced = transfer_frame(anchor_plane, mv_rel, residual_up)
-    return torch.where((types == 2)[:, None, None], enhanced, frames)
+    """Pipeline ② for every frame of every stream in one qtransfer launch,
+    kept where types == 2.  (S, T, ...) inputs."""
+    S, T = types.shape
+    cum = accumulate_mv(mvs_hd)
+    ss = torch.arange(S, device=types.device)[:, None]
+    mv_rel = cum - cum[ss, anchor_idx.long()]
+    enhanced = transfer_frame(anchor_plane.flatten(0, 1),
+                              mv_rel.flatten(0, 1), residual_up.flatten(0, 1))
+    return torch.where((types == 2)[..., None, None],
+                       enhanced.reshape(frames.shape), frames)
 
 
 def _execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes, gt_valid,
                    detector_params, det_cfg, bw_kbps, queue_delay, total_bits,
-                   costs: PipelineCosts, roi=None):
-    """Upscale, quality transfer, one detector forward over the chunk
-    (ROI-gated onto the top-K regions when ``roi`` is a
+                   costs: PipelineCosts, lr_extent=None, roi=None):
+    """S streams at once, every input with a leading stream axis (enc's
+    fields (S, T, ...), types (S, T), anchor_hd (S, T, H, W), the scalars
+    (S,)): upscale, quality transfer, one detector forward over the S*T
+    frames (ROI-gated onto the top-K regions when ``roi`` is a
     :class:`~repro_torch.core.roi.RoiConfig`), reuse, F1 and the latency
-    model."""
-    H, W = anchor_hd.shape[1:]
-    lr_up = upscale_nearest(enc.recon, H, W)
+    model.  ``lr_extent``: (S, 2) valid LR extents of a padded encode."""
+    S, T, H, W = anchor_hd.shape
+    lr_up = upscale_nearest(enc.recon, H, W, src_hw=lr_extent)
     aidx = anchor_index(types)
-    anchor_plane = anchor_hd[aidx.long()]
-    mvs_hd = _upscale_mvs(enc.mv, (H, W))
-    residual_up = upscale_nearest(_residual_px(enc), H, W)
-    frames_exec = torch.where((types == 1)[:, None, None], anchor_hd, lr_up)
+    ss = torch.arange(S, device=types.device)[:, None]
+    anchor_plane = anchor_hd[ss, aidx.long()]
+    mvs_hd = _upscale_mvs(enc.mv, (H, W), lr_hw=lr_extent)
+    residual_up = upscale_nearest(_residual_px(enc), H, W, src_hw=lr_extent)
+    frames_exec = torch.where((types == 1)[..., None, None], anchor_hd, lr_up)
     qt = _transfer(anchor_plane, aidx, mvs_hd, residual_up, frames_exec,
                    types)
 
-    # pipelines ① + ② as one detector forward over the whole chunk
+    # pipelines ① + ② as one detector forward over every stream's frames
     if roi is not None:
         boxes_i, scores_i = roi_detect(
             detector_params, det_cfg, roi, qt, enc.mv, enc.residual_q,
-            enc.recon.shape[1:])
+            enc.recon.shape[-2:], lr_extent=lr_extent)
     else:
         boxes_i, scores_i = _detect(detector_params, det_cfg, qt)
     boxes, scores = reuse_chunk(types, mvs_hd, boxes_i, scores_i)
-    f1 = D.f1_score(boxes, scores, gt_boxes, gt_valid)
+    f1 = D.f1_score(boxes.flatten(0, 1), scores.flatten(0, 1),
+                    gt_boxes.flatten(0, 1), gt_valid.flatten(0, 1)
+                    ).reshape(S, T)
 
-    n1 = (types == 1).sum().to(f32)
-    n2 = (types == 2).sum().to(f32)
-    n3 = (types == 3).sum().to(f32)
+    n1 = (types == 1).sum(-1).to(f32)
+    n2 = (types == 2).sum(-1).to(f32)
+    n3 = (types == 3).sum(-1).to(f32)
     t_comp = pipeline_cost(n1, n2, n3, costs)
-    bw = torch.as_tensor(bw_kbps, dtype=f32, device=anchor_hd.device)
-    t_trans = total_bits / (bw * 1000.0).clamp(min=1e-6)
-    queue = torch.as_tensor(queue_delay, dtype=f32, device=anchor_hd.device)
-    latency = t_trans + queue + t_comp
+    t_trans = total_bits / (bw_kbps * 1000.0).clamp(min=1e-6)
+    latency = t_trans + queue_delay + t_comp
     return {"boxes": boxes, "scores": scores, "f1": f1,
-            "mean_f1": f1.mean(), "latency": latency, "t_trans": t_trans,
-            "t_queue": queue, "t_comp": t_comp}
+            "mean_f1": f1.mean(-1), "latency": latency, "t_trans": t_trans,
+            "t_queue": queue_delay, "t_comp": t_comp}
 
 
 def decode_execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes,
@@ -146,14 +182,43 @@ def decode_execute_chunk(enc: EncodedChunk, types, anchor_hd, gt_boxes,
     t_trans, t_queue, t_comp).
     """
     dev = resolve_device(device)
-    enc = EncodedChunk(**{f.name: getattr(enc, f.name).to(dev)
+    enc = EncodedChunk(**{f.name: torch.as_tensor(getattr(enc, f.name),
+                                                  device=dev)[None]
                           for f in dataclasses.fields(enc)})
-    params = {k: torch.as_tensor(v, device=dev)
-              for k, v in detector_params.items()}
+    types, anchor_hd, gt_boxes, gt_valid = (
+        torch.as_tensor(x, device=dev)[None]
+        for x in (types, anchor_hd, gt_boxes, gt_valid))
+    out = decode_execute_batched(
+        enc, types, anchor_hd, gt_boxes, gt_valid, detector_params, det_cfg,
+        bw_kbps=bw_kbps, queue_delay=queue_delay, total_bits=total_bits,
+        costs=costs, roi=roi, device=dev)
+    return {k: v[0] for k, v in out.items()}
+
+
+def decode_execute_batched(enc: EncodedChunk, types, anchor_hd, gt_boxes,
+                           gt_valid, detector_params, det_cfg, *, bw_kbps,
+                           queue_delay, total_bits,
+                           costs: PipelineCosts = PipelineCosts(),
+                           roi=None, device=None) -> dict:
+    """S chunks of S streams through the 3 pipelines at once: every input
+    has a leading stream axis (enc from ``encode_chunk_batched``, types
+    (S, T), anchor_hd (S, T, H, W), the scalars (S,) or one for all).
+    Each kernel launches once for all S streams.  Runs on CUDA unless
+    ``device`` says otherwise; returns the dict of
+    :func:`decode_execute_chunk` with a leading stream axis."""
+    dev = resolve_device(device)
+    enc = EncodedChunk(**{f.name: torch.as_tensor(getattr(enc, f.name),
+                                                  device=dev)
+                          for f in dataclasses.fields(enc)})
+    types = torch.as_tensor(types, dtype=torch.int32, device=dev)
+    S = types.shape[0]
+    bw_kbps, queue_delay, total_bits = (
+        torch.as_tensor(x, dtype=f32, device=dev).reshape(-1).expand(S)
+        for x in (bw_kbps, queue_delay, total_bits))
     return _execute_chunk(
-        enc, torch.as_tensor(types, dtype=torch.int32, device=dev),
-        torch.as_tensor(anchor_hd, dtype=f32, device=dev),
+        enc, types, torch.as_tensor(anchor_hd, dtype=f32, device=dev),
         torch.as_tensor(gt_boxes, dtype=f32, device=dev),
-        torch.as_tensor(gt_valid, device=dev), params, det_cfg, bw_kbps,
-        queue_delay, torch.as_tensor(total_bits, dtype=f32, device=dev),
-        costs, roi=roi)
+        torch.as_tensor(gt_valid, device=dev),
+        {k: torch.as_tensor(v, device=dev)
+         for k, v in detector_params.items()},
+        det_cfg, bw_kbps, queue_delay, total_bits, costs, roi=roi)

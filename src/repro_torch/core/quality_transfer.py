@@ -13,7 +13,9 @@ from repro_torch.kernels.qtransfer.ops import qtransfer
 
 def residual_to_pixels(residual_q, qtab, H: int, W: int):
     """Dequantize + inverse-transform residual coefficients:
-    (..., nb, 8, 8) -> (..., H, W), one blockdct inverse launch."""
+    (..., nb, 8, 8) -> (..., H, W), one blockdct inverse launch for every
+    frame.  qtab: (8, 8), or tables broadcast over the leading axes, as
+    (S, 1, 8, 8) for one a stream of (S, T, nb, 8, 8) coefficients."""
     return B.dequant_idct_raster(residual_q, qtab, H, W)
 
 

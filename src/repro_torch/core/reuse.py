@@ -1,6 +1,8 @@
 """Inference-result reuse, paper §IV-B pipeline ③ (port of
 ``repro.core.reuse``): take the last inference frame's detections and
-shift each box by the mean motion vector of the macroblocks it covers."""
+shift each box by the mean motion vector of the macroblocks it covers.
+Every function takes leading stream axes; the loop over a chunk's frames
+is T steps for any number of streams."""
 from __future__ import annotations
 
 import torch
@@ -11,7 +13,8 @@ f32 = torch.float32
 
 
 def shift_boxes(boxes, scores, mv):
-    """boxes: (N, 4) cxcywh px; mv: (nby, nbx, 2) codec motion vectors.
+    """boxes: (..., N, 4) cxcywh px; mv: (..., nby, nbx, 2) codec motion
+    vectors.
 
     Codec convention: pred(y) = ref(y + mv), so an object moves by -mv and
     each box shifts by -mean(mv) over the blocks it covers.  The block
@@ -19,37 +22,38 @@ def shift_boxes(boxes, scores, mv):
     products instead of an (N, nby, nbx) mask; MVs are integers, so every
     sum is exact in f32 and equals the reference's.
     """
-    nby, nbx = mv.shape[:2]
+    nby, nbx = mv.shape[-3:-1]
     dev = boxes.device
     cy = (torch.arange(nby, dtype=f32, device=dev) + 0.5) * MB
     cx = (torch.arange(nbx, dtype=f32, device=dev) + 0.5) * MB
-    in_y = ((cy[None, :] - boxes[:, 0:1]).abs()
-            <= boxes[:, 2:3] / 2 + MB / 2).to(f32)           # (N, nby)
-    in_x = ((cx[None, :] - boxes[:, 1:2]).abs()
-            <= boxes[:, 3:4] / 2 + MB / 2).to(f32)           # (N, nbx)
+    in_y = ((cy - boxes[..., 0:1]).abs()
+            <= boxes[..., 2:3] / 2 + MB / 2).to(f32)         # (..., N, nby)
+    in_x = ((cx - boxes[..., 1:2]).abs()
+            <= boxes[..., 3:4] / 2 + MB / 2).to(f32)         # (..., N, nbx)
     m = mv.to(f32)
-    n = (in_y.sum(1) * in_x.sum(1)).clamp(min=1e-9)
-    dy = ((in_y @ m[..., 0]) * in_x).sum(1) / n
-    dx = ((in_y @ m[..., 1]) * in_x).sum(1) / n
-    shift = torch.stack([dy, dx, torch.zeros_like(dy), torch.zeros_like(dy)],
-                        dim=1)
-    return boxes - shift, scores
+    n = (in_y.sum(-1) * in_x.sum(-1)).clamp(min=1e-9)
+    dy = ((in_y @ m[..., 0]) * in_x).sum(-1) / n
+    dx = ((in_y @ m[..., 1]) * in_x).sum(-1) / n
+    zero = torch.zeros_like(dy)
+    return boxes - torch.stack([dy, dx, zero, zero], dim=-1), scores
 
 
 def reuse_chunk(types, mvs, infer_boxes, infer_scores):
     """Propagate detections through the type-3 frames of a chunk.
 
-    types: (T,); mvs: (T, nby, nbx, 2) frame-to-previous MVs;
-    infer_boxes/scores: (T, N, 4)/(T, N), valid at type-1/2 frames.
-    Returns per-frame (boxes, scores).
+    types: (..., T); mvs: (..., T, nby, nbx, 2) frame-to-previous MVs;
+    infer_boxes/scores: (..., T, N, 4)/(..., T, N), valid at type-1/2
+    frames.  Returns per-frame (boxes, scores).
     """
-    boxes, scores = infer_boxes[0], infer_scores[0]
+    T = types.shape[-1]
+    boxes, scores = infer_boxes[..., 0, :, :], infer_scores[..., 0, :]
     out_boxes, out_scores = [], []
-    for i in range(types.shape[0]):
-        fresh = types[i] != 3
-        shifted, sc = shift_boxes(boxes, scores, mvs[i])
-        boxes = torch.where(fresh, infer_boxes[i], shifted)
-        scores = torch.where(fresh, infer_scores[i], sc)
+    for i in range(T):
+        fresh = (types[..., i] != 3)[..., None]
+        shifted, sc = shift_boxes(boxes, scores, mvs[..., i, :, :, :])
+        boxes = torch.where(fresh[..., None], infer_boxes[..., i, :, :],
+                            shifted)
+        scores = torch.where(fresh, infer_scores[..., i, :], sc)
         out_boxes.append(boxes)
         out_scores.append(scores)
-    return torch.stack(out_boxes), torch.stack(out_scores)
+    return torch.stack(out_boxes, dim=-3), torch.stack(out_scores, dim=-2)

@@ -1,5 +1,4 @@
-"""ROI-gated detector inference (port of ``repro.core.roi``, without the
-mixed-ladder ``lr_extent``).
+"""ROI-gated detector inference (port of ``repro.core.roi``).
 
 A relevance head over statistics the codec already computed (macroblock
 motion vectors and quantised residual energy) scores each
@@ -15,6 +14,11 @@ full-frame ``detection.forward``: each patch carries a halo of at least
 the convolutions' receptive field, the planes are normalised before they
 are padded with zeros, and after every layer the activations that fall
 outside the frame are zeroed, which is the full frame's "SAME" padding.
+
+Every entry takes a leading stream axis: S streams' frames go through one
+gather and one patch forward, and the carry runs along each stream's
+frames.  ``lr_extent`` gives each stream's valid LR extent when the codec
+statistics come from a mixed-ladder padded encode.
 """
 from __future__ import annotations
 
@@ -97,40 +101,51 @@ def validate_roi(roi: RoiConfig, det_cfg, hd_hw) -> None:
 # ---------------------------------------------------------- relevance head
 def region_scores(mv, residual_q, lr_hw, hd_hw, roi: RoiConfig,
                   lr_extent=None):
-    """(T, nry, nrx) f32 relevance scores.
+    """(..., T, nry, nrx) f32 relevance scores.
 
-    ``mv``: (T, nby, nbx, 2) LR macroblock motion vectors; ``residual_q``:
-    (T, nblocks, 8, 8) quantised residual coefficients (row-major 8x8
-    blocks of the LR frame); ``lr_hw``: the LR shape.  Each HD region is
-    sampled on an 8-px sub-grid; a sample maps to its nearest LR
-    macroblock (|dy| + |dx|) and nearest LR 8x8 block (mean |coef|), and
-    the region's score is the max over its samples of
-    ``w_motion * motion + w_resid * residual``."""
-    if lr_extent is not None:
-        raise NotImplementedError(
-            "region_scores(lr_extent=...) belongs to the mixed-ladder form, "
-            "which is not ported yet")
+    ``mv``: (..., T, nby, nbx, 2) LR macroblock motion vectors;
+    ``residual_q``: (..., T, nblocks, 8, 8) quantised residual coefficients
+    (row-major 8x8 blocks of the LR canvas); ``lr_hw``: the LR canvas
+    shape; ``lr_extent``: the valid (h, w), or (S, 2) of them, one a
+    stream of a leading stream axis, when the statistics come from the
+    mixed-ladder padded encode (the samples then map onto the valid
+    region only).  Each HD region is sampled on an 8-px sub-grid; a sample
+    maps to its nearest LR macroblock (|dy| + |dx|) and nearest LR 8x8
+    block (mean |coef|), and the region's score is the max over its
+    samples of ``w_motion * motion + w_resid * residual``."""
     H, W = hd_hw
     h, w = lr_hw
     nry, nrx = region_grid((H, W), roi)
     s = roi.region_px // 8                  # samples per region side
-    T = mv.shape[0]
     dev = mv.device
-    ys = torch.arange(nry * s, device=dev) * 8 + 4
-    xs = torch.arange(nrx * s, device=dev) * 8 + 4
-    ylr = (ys * h // H).clamp(0, h - 1)
-    xlr = (xs * w // W).clamp(0, w - 1)
-    mby = (ylr // 16).clamp(0, max(h // 16 - 1, 0))
-    mbx = (xlr // 16).clamp(0, max(w // 16 - 1, 0))
-    rby = (ylr // 8).clamp(0, h // 8 - 1)
-    rbx = (xlr // 8).clamp(0, w // 8 - 1)
+    ext = torch.as_tensor((h, w) if lr_extent is None else lr_extent,
+                          device=dev).long().reshape(-1, 2)
+    hv, wv = ext[:, 0:1], ext[:, 1:2]                      # (S, 1)
+    S = ext.shape[0]
+    lead = mv.shape[:-3]
+    ys = torch.arange(nry * s, device=dev)[None] * 8 + 4
+    xs = torch.arange(nrx * s, device=dev)[None] * 8 + 4
+    # the reference's clips; every index is >= 0 already
+    ylr = torch.minimum(ys * hv // H, hv - 1)
+    xlr = torch.minimum(xs * wv // W, wv - 1)
+    mby = torch.minimum(ylr // 16, (hv // 16 - 1).clamp(min=0))
+    mbx = torch.minimum(xlr // 16, (wv // 16 - 1).clamp(min=0))
+    rby = torch.minimum(ylr // 8, hv // 8 - 1)
+    rbx = torch.minimum(xlr // 8, wv // 8 - 1)
 
-    motion = mv.to(f32).abs().sum(-1)                      # (T, nby, nbx)
-    motion_s = motion[:, mby][:, :, mbx]                   # (T, nry*s, nrx*s)
-    energy = residual_q.to(f32).abs().mean((-1, -2))       # (T, nblocks)
-    energy_s = energy[:, rby[:, None] * (w // 8) + rbx[None, :]]
+    def sample(values, idx):
+        """values (..., n) gathered at each stream's (S, Ny, Nx) index."""
+        v = values.reshape(S, -1, values.shape[-1])
+        i = idx.reshape(S, 1, -1).expand(S, v.shape[1], -1)
+        return v.gather(2, i).reshape(*lead, *idx.shape[1:])
+
+    nbx = mv.shape[-2]
+    motion = mv.to(f32).abs().sum(-1).flatten(-2)          # (..., nby*nbx)
+    motion_s = sample(motion, mby[:, :, None] * nbx + mbx[:, None, :])
+    energy = residual_q.to(f32).abs().mean((-1, -2))       # (..., nblocks)
+    energy_s = sample(energy, rby[:, :, None] * (w // 8) + rbx[:, None, :])
     samples = roi.w_motion * motion_s + roi.w_resid * energy_s
-    return samples.reshape(T, nry, s, nrx, s).amax(dim=(2, 4))
+    return samples.reshape(*lead, nry, s, nrx, s).amax(dim=(-3, -1))
 
 
 def roi_select(scores, capacity: int, threshold: float):
@@ -197,58 +212,70 @@ def forward_patches(params, det_cfg, patches, ry, rx, hd_hw,
 
 def roi_raw_maps(params, det_cfg, roi: RoiConfig, frames, idx, valid, *,
                  carry: bool = True):
-    """Gather, forward and scatter: (T, H, W) frames and a (T, K)
-    selection -> (T, H/s, W/s, 5) raw head maps.
+    """Gather, forward and scatter: (..., T, H, W) frames and a (..., T, K)
+    selection -> (..., T, H/s, W/s, 5) raw head maps; every stream's
+    patches go through one gather and one forward.
 
     ``carry=True``: region r at frame t holds the raw output of the last
-    frame <= t that selected it (the reference's ``lax.scan`` carry),
-    found with one ``cummax`` over a (T, R) mark and one gather; a region
-    never selected holds 0.  ``carry=False``: each frame's map holds only
-    its own selected regions.  Invalid lanes are dropped."""
-    T, H, W = frames.shape
+    frame <= t of its stream that selected it (the reference's ``lax.scan``
+    carry), found with one ``cummax`` over a (S, T, R) mark and one
+    gather; a region never selected holds 0.  ``carry=False``: each
+    frame's map holds only its own selected regions.  Invalid lanes are
+    dropped."""
+    *lead, T, H, W = frames.shape
     validate_roi(roi, det_cfg, (H, W))
     nry, nrx = region_grid((H, W), roi)
     R = nry * nrx
     rc = roi.region_px // det_cfg.stride
     dev = frames.device
-    idx = idx.long()
-    patches = extract_patches(frames, idx // nrx, idx % nrx, roi)
-    raws = forward_patches(params, det_cfg, patches, idx // nrx, idx % nrx,
-                           (H, W), roi)                   # (T, K, rc, rc, 5)
-    K = idx.shape[1]
-    # lane[t, r]: the lane of frame t that computed region r, or -1;
+    K = idx.shape[-1]
+    idx = idx.reshape(-1, T, K).long()
+    valid = valid.reshape(-1, T, K)
+    S = idx.shape[0]
+    flat = idx.reshape(-1, K)
+    patches = extract_patches(frames.reshape(-1, H, W), flat // nrx,
+                              flat % nrx, roi)
+    raws = forward_patches(params, det_cfg, patches, flat // nrx, flat % nrx,
+                           (H, W), roi).reshape(S, T, K, rc, rc, -1)
+    # lane[s, t, r]: the lane of frame t that computed region r, or -1;
     # invalid lanes go to the extra column R and are cut off
-    lane = torch.full((T, R + 1), -1, dtype=torch.long, device=dev)
-    lane.scatter_(1, torch.where(valid, idx, R),
-                  torch.arange(K, device=dev).expand(T, K))
-    lane = lane[:, :R]
-    frame = torch.arange(T, device=dev)[:, None]
+    lane = torch.full((S, T, R + 1), -1, dtype=torch.long, device=dev)
+    lane.scatter_(2, torch.where(valid, idx, R),
+                  torch.arange(K, device=dev).expand(S, T, K))
+    lane = lane[..., :R]
+    frame = torch.arange(T, device=dev)[None, :, None]
     src_t = torch.where(lane >= 0, frame, -1)
     if carry:
-        src_t = torch.cummax(src_t, dim=0).values
+        src_t = torch.cummax(src_t, dim=1).values
     st = src_t.clamp(min=0)
-    sk = lane[st, torch.arange(R, device=dev)[None, :]].clamp(min=0)
-    regions = torch.where((src_t >= 0)[..., None, None, None], raws[st, sk],
-                          0.0)                            # (T, R, rc, rc, 5)
-    return regions.reshape(T, nry, nrx, rc, rc, -1).permute(
-        0, 1, 3, 2, 4, 5).reshape(T, nry * rc, nrx * rc, -1)
+    ss = torch.arange(S, device=dev)[:, None, None]
+    sk = lane[ss, st, torch.arange(R, device=dev)].clamp(min=0)
+    regions = torch.where((src_t >= 0)[..., None, None, None],
+                          raws[ss, st, sk], 0.0)          # (S, T, R, rc, rc, 5)
+    return regions.reshape(S, T, nry, nrx, rc, rc, -1).permute(
+        0, 1, 2, 4, 3, 5, 6).reshape(*lead, T, nry * rc, nrx * rc, -1)
 
 
 # ------------------------------------------------------------ entry points
 def roi_detect(params, det_cfg, roi: RoiConfig, frames, mv, residual_q,
                lr_hw, lr_extent=None):
     """ROI-gated stand-in for the full-frame detector: score, select,
-    gather, forward, scatter with the carry, decode.  Returns (boxes,
-    scores) shaped as ``detection.decode_boxes`` on the full frame."""
-    T, H, W = frames.shape
+    gather, forward, scatter with the carry, decode.  frames (..., T, H,
+    W) with the codec statistics of the same leading axes; ``lr_extent``
+    as for :func:`region_scores`.  Returns (boxes, scores) shaped as
+    ``detection.decode_boxes`` on the full frames, (..., T, Nc, 4) and
+    (..., T, Nc)."""
+    *lead, T, H, W = frames.shape
     nry, nrx = region_grid((H, W), roi)
     scores = region_scores(mv, residual_q, lr_hw, (H, W), roi,
                            lr_extent=lr_extent)
-    idx, valid = roi_select(scores.reshape(T, nry * nrx), roi.capacity,
-                            roi.threshold)
+    idx, valid = roi_select(scores.reshape(*lead, T, nry * nrx),
+                            roi.capacity, roi.threshold)
     maps = roi_raw_maps(params, det_cfg, roi, frames, idx, valid,
                         carry=True)
-    return D.decode_boxes(maps, det_cfg)
+    boxes, obj = D.decode_boxes(maps.reshape(-1, *maps.shape[-3:]), det_cfg)
+    return (boxes.reshape(*lead, T, *boxes.shape[1:]),
+            obj.reshape(*lead, T, obj.shape[1]))
 
 
 def roi_infer(params, det_cfg, roi: RoiConfig, frames, scores):

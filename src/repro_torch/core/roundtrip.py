@@ -1,14 +1,30 @@
-"""Encode -> decode round trip of one chunk of one stream (port of
-``repro.core.roundtrip``: the pinned-anchor-quality path, full frame or
-ROI-gated, with any codec search and storage dtype).
+"""Encode -> decode round trip of a chunk (port of
+``repro.core.roundtrip``): ladder downscale, the I/P video encode, Eq. 3
+classification, the JPEG anchor encode, the rate model and the 3-pipeline
+decode-execute, full frame or ROI-gated, with any codec search and
+storage dtype.
 
-``roundtrip_chunk`` runs ladder downscale, the I/P video encode, Eq. 3
-classification, the JPEG anchor encode of every frame (one batched
-blockdct launch, masked to the type-1 frames), the rate model and the
-3-pipeline decode-execute.  ``roundtrip_oracle`` composes the same steps
-the way the reference's oracle does: a per-anchor JPEG loop between the
-encode and ``decode_execute_chunk``.  The anchor budget search
-(``anchor_search=True``) is not ported yet.
+* ``roundtrip_chunk``: one stream.
+* ``roundtrip_batched``: S streams of one HD shape and one rung.
+* ``roundtrip_ladder_batched``: S streams of MIXED rungs on one padded LR
+  canvas sized to the batch's largest rung; ``roundtrip_padded_batched``
+  takes the canvas, extents and qualities as data (``full_lr_canvas``
+  fixes the canvas whatever the rungs).
+* ``roundtrip_oracle``: the composed execution the fused forms must
+  agree with: ``encode_chunk``, a JPEG encode (and with the budget search
+  a ladder probe) of each anchor on its own, ``decode_execute_chunk``.
+
+Every form runs S streams as one batch: on CUDA each encode step launches
+each kernel once for all S streams, and the decode half runs each kernel
+once over all S*T frames.  Lane s of a batched or mixed-ladder form equals
+``roundtrip_chunk`` on stream s at its own rung.
+
+The anchor quality is pinned to ``cfg.anchor_quality``, or, with
+``anchor_search=True``, chosen a frame from ``ANCHOR_QUALITY_LADDER``: the
+highest rung whose bits fit the anchor's even share of the chunk's spare
+bandwidth (``bw_kbps * 1000 * T/fps`` minus the video bits).  The fused
+search charges every rung's bits with one blockdct launch a rung over all
+frames and reconstructs each frame once, at its chosen rung.
 """
 from __future__ import annotations
 
@@ -17,8 +33,11 @@ import dataclasses
 import torch
 
 from repro_torch.codec import blockdct as B
-from repro_torch.codec.image_codec import jpeg_encode_decode
-from repro_torch.codec.rate_model import QUALITY_LADDER, downscale
+from repro_torch.codec.image_codec import (ANCHOR_QUALITY_LADDER,
+                                           budget_rung, jpeg_encode_decode,
+                                           ladder_bits, quality_for_budget)
+from repro_torch.codec.rate_model import (QUALITY_LADDER, downscale,
+                                          ladder_lr_shape, lr_shape_for_scale)
 from repro_torch.codec.video_codec import (VideoCodecConfig, _encode_chunk,
                                            encode_chunk)
 from repro_torch.core.classification import classify_frames
@@ -35,8 +54,9 @@ f32 = torch.float32
 class RoundtripConfig:
     """``level`` is the bitrate-ladder rung (§VI-A): it sets the LR shape
     and the codec quality.  ``roi`` gates the detector onto the top-K
-    regions (None: full frame).  ``anchor_search`` must stay False: the
-    anchor budget search is not ported yet."""
+    regions (None: full frame).  ``anchor_search`` swaps the pinned
+    ``anchor_quality`` for the budget search over
+    ``ANCHOR_QUALITY_LADDER``."""
     level: int = 2
     codec: VideoCodecConfig = VideoCodecConfig()
     anchor_quality: float = 70.0
@@ -51,17 +71,11 @@ class RoundtripConfig:
         return dataclasses.replace(self.codec, quality=ql.quality)
 
 
-def _check_ported(cfg: RoundtripConfig) -> None:
-    if cfg.anchor_search:
-        raise NotImplementedError(
-            "RoundtripConfig.anchor_search is not ported yet")
-
-
 def anchor_budget_bits(bw_kbps, video_bits, n_anchors, n_frames: int,
                        fps: float):
     """Per-anchor bit budget: the chunk's bandwidth allowance
     (bw_kbps * 1000 * T/fps) minus the video bits, split evenly across the
-    chunk's anchors, in f32."""
+    chunk's anchors, in f32 (element-wise over streams)."""
     dev = video_bits.device if torch.is_tensor(video_bits) else None
     chunk_bits = torch.as_tensor(bw_kbps, dtype=f32, device=dev) * 1000.0 \
         * (n_frames / fps)
@@ -71,39 +85,83 @@ def anchor_budget_bits(bw_kbps, video_bits, n_anchors, n_frames: int,
                                    device=dev).clamp(min=1.0)
 
 
-def _inputs(raw, gt_boxes, gt_valid, detector_params, device):
-    dev = resolve_device(device)
-    return (dev, torch.as_tensor(raw, dtype=f32, device=dev),
-            torch.as_tensor(gt_boxes, dtype=f32, device=dev),
-            torch.as_tensor(gt_valid, device=dev),
-            {k: torch.as_tensor(v, device=dev)
-             for k, v in detector_params.items()})
+def _params(detector_params, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in detector_params.items()}
 
 
-def _finish(out: dict, types, video_bits, anchor_bits, anchor_q) -> dict:
+def _lanes(dev, S: int, **scalars) -> dict:
+    """Per-stream scalars as (S,) f32 tensors (one value serves all)."""
+    return {k: torch.as_tensor(v, dtype=f32, device=dev).reshape(-1)
+            .expand(S) for k, v in scalars.items()}
+
+
+def _anchors(raw, types, video_bits, bw_kbps, cfg: RoundtripConfig):
+    """The JPEG anchors of S streams' chunks, raw (S, T, H, W): every frame
+    encoded, masked to the type-1 frames.  Returns (anchor_hd, anchor_bits
+    (S,), anchor_q (S, T))."""
+    S, T = types.shape
+    is1 = types == 1
+    if cfg.anchor_search:
+        # each frame's bits at every rung, its even share of the spare
+        # bandwidth, the highest rung that fits; then one encode of each
+        # frame at its own rung's table
+        bits = ladder_bits(raw)                              # (S, T, Q)
+        n_anchors = B.seq_sum(torch.where(is1, 1.0, 0.0), 1)
+        per_anchor = anchor_budget_bits(bw_kbps, video_bits, n_anchors, T,
+                                        cfg.fps)
+        rung = budget_rung(bits, per_anchor[:, None])        # (S, T)
+        qs = torch.tensor(ANCHOR_QUALITY_LADDER, dtype=f32, device=raw.device)
+        tables = B.quant_table(ANCHOR_QUALITY_LADDER, raw.device)[rung]
+        _, jrec = B.dct_quantize_raster(raw - 128.0, tables)
+        jrec = (jrec + 128.0).clamp(0.0, 255.0)
+        jbits = bits.gather(-1, rung[..., None])[..., 0]
+        frame_q = qs[rung]
+    else:
+        # every frame at the pinned quality, in one blockdct launch
+        jrec, jbits = jpeg_encode_decode(raw, cfg.anchor_quality)
+        frame_q = torch.full((S, T), cfg.anchor_quality, dtype=f32,
+                             device=raw.device)
+    anchor_hd = torch.where(is1[..., None, None], jrec, 0.0)
+    anchor_bits = B.seq_sum(torch.where(is1, jbits, 0.0), 1)
+    return anchor_hd, anchor_bits, torch.where(is1, frame_q, 0.0)
+
+
+def _roundtrip_execute(raw, enc, lr_extent, gt_boxes, gt_valid, params,
+                       lanes: dict, cfg: RoundtripConfig) -> dict:
+    """Post-encode half for S streams, every input with a leading stream
+    axis: classification, anchors, rate model, 3-pipeline execution."""
+    video_bits = B.seq_sum(enc.bits, 1)
+    types, _, _ = classify_frames(enc.frame_diff / 255.0,
+                                  enc.residual_mag / 255.0, lanes["tr1"],
+                                  lanes["tr2"])
+    anchor_hd, anchor_bits, anchor_q = _anchors(raw, types, video_bits,
+                                                lanes["bw_kbps"], cfg)
+    total_bits = video_bits + anchor_bits
+    out = _execute_chunk(enc, types, anchor_hd, gt_boxes, gt_valid, params,
+                         cfg.det_cfg, lanes["bw_kbps"], lanes["queue_delay"],
+                         total_bits, cfg.costs, lr_extent=lr_extent,
+                         roi=cfg.roi)
     out.update(types=types, video_bits=video_bits, anchor_bits=anchor_bits,
-               total_bits=video_bits + anchor_bits, anchor_q=anchor_q)
+               total_bits=total_bits, anchor_q=anchor_q)
     return out
 
 
-def _roundtrip_execute(raw, enc, gt_boxes, gt_valid, params, tr1, tr2,
-                       bw_kbps, queue_delay, cfg: RoundtripConfig) -> dict:
-    """Post-encode half: classification, anchors, rate model, 3-pipeline
-    execution, on tensors already on the device."""
-    video_bits = B.seq_sum(enc.bits)
-    types, _, _ = classify_frames(enc.frame_diff / 255.0,
-                                  enc.residual_mag / 255.0, tr1, tr2)
-    is1 = types == 1
-    # JPEG-encode EVERY frame at the pinned quality in one blockdct launch
-    # and mask to the type-1 frames
-    jrec, jbits = jpeg_encode_decode(raw, cfg.anchor_quality)
-    anchor_hd = torch.where(is1[:, None, None], jrec, 0.0)
-    anchor_bits = B.seq_sum(torch.where(is1, jbits, 0.0))
-    anchor_q = torch.where(is1, cfg.anchor_quality, 0.0)
-    out = _execute_chunk(enc, types, anchor_hd, gt_boxes, gt_valid, params,
-                         cfg.det_cfg, bw_kbps, queue_delay,
-                         video_bits + anchor_bits, cfg.costs, roi=cfg.roi)
-    return _finish(out, types, video_bits, anchor_bits, anchor_q)
+def _batch_inputs(raw, gt_boxes, gt_valid, detector_params, device,
+                  **scalars):
+    dev = resolve_device(device)
+    raw = torch.as_tensor(raw, dtype=f32, device=dev)
+    return (dev, raw, torch.as_tensor(gt_boxes, dtype=f32, device=dev),
+            torch.as_tensor(gt_valid, device=dev),
+            _params(detector_params, dev), _lanes(dev, raw.shape[0],
+                                                  **scalars))
+
+
+def _downscale(raw, level: int):
+    """(S, T, H, W) HD frames -> their ladder rung's LR frames, a stream
+    at a time: each stream's pooling is then the single-stream one."""
+    return torch.stack([downscale(r, QUALITY_LADDER[level].scale)
+                        for r in raw])
 
 
 def roundtrip_chunk(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
@@ -118,13 +176,106 @@ def roundtrip_chunk(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
     says otherwise).  Returns the ``decode_execute_chunk`` dict plus
     types/video_bits/anchor_bits/total_bits/anchor_q.
     """
-    _check_ported(cfg)
-    _, raw, gt_boxes, gt_valid, params = _inputs(
-        raw, gt_boxes, gt_valid, detector_params, device)
-    lr = downscale(raw, QUALITY_LADDER[cfg.level].scale)
-    enc = _encode_chunk(lr, cfg.codec_for())
-    return _roundtrip_execute(raw, enc, gt_boxes, gt_valid, params, tr1,
-                              tr2, bw_kbps, queue_delay, cfg)
+    out = roundtrip_batched(
+        torch.as_tensor(raw)[None], torch.as_tensor(gt_boxes)[None],
+        torch.as_tensor(gt_valid)[None], detector_params, tr1=tr1, tr2=tr2,
+        bw_kbps=bw_kbps, queue_delay=queue_delay, cfg=cfg, device=device)
+    return {k: v[0] for k, v in out.items()}
+
+
+def roundtrip_batched(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
+                      bw_kbps, queue_delay=0.0,
+                      cfg: RoundtripConfig = RoundtripConfig(),
+                      device=None) -> dict:
+    """S streams of one HD shape at one rung: raw (S, T, H, W); the
+    per-stream scalars (S,) or one for all; detector params shared.
+    Returns the ``roundtrip_chunk`` dict with a leading stream axis.  On
+    CUDA every kernel launches as often for S streams as for one."""
+    _, raw, gt_boxes, gt_valid, params, lanes = _batch_inputs(
+        raw, gt_boxes, gt_valid, detector_params, device, tr1=tr1, tr2=tr2,
+        bw_kbps=bw_kbps, queue_delay=queue_delay)
+    enc = _encode_chunk(_downscale(raw, cfg.level), cfg.codec_for())
+    return _roundtrip_execute(raw, enc, None, gt_boxes, gt_valid, params,
+                              lanes, cfg)
+
+
+def ladder_batch_arrays(levels, H: int, W: int, *, device=None):
+    """Per-rung LR shapes of an (H, W) source -> (extents (S, 2) int32,
+    qualities (S,) f32) of a mixed-ladder batch, on the resolved
+    device."""
+    dev = resolve_device(device)
+    extents = torch.tensor([ladder_lr_shape(level, H, W) for level in levels],
+                           dtype=torch.int32, device=dev)
+    qualities = torch.tensor([QUALITY_LADDER[level].quality
+                              for level in levels], dtype=f32, device=dev)
+    return extents, qualities
+
+
+def _downscale_pad(raw, levels):
+    """Each stream downscaled to its own rung, zero-padded onto the batch's
+    largest LR shape."""
+    S, T, H, W = raw.shape
+    shapes = [ladder_lr_shape(level, H, W) for level in levels]
+    hp, wp = max(h for h, _ in shapes), max(w for _, w in shapes)
+    return torch.stack([
+        torch.nn.functional.pad(downscale(raw[s],
+                                          QUALITY_LADDER[level].scale),
+                                (0, wp - w, 0, hp - h))
+        for s, (level, (h, w)) in enumerate(zip(levels, shapes))])
+
+
+def full_lr_canvas(H: int, W: int) -> tuple[int, int]:
+    """The largest LR shape any ladder rung can produce for an (H, W)
+    source: the fixed canvas of ``roundtrip_padded_batched``."""
+    return lr_shape_for_scale(1.0, H, W)
+
+
+def _roundtrip_ladder_body(raw, lr_pad, extents, qualities, gt_boxes,
+                           gt_valid, params, lanes: dict,
+                           cfg: RoundtripConfig) -> dict:
+    enc = _encode_chunk(lr_pad, cfg.codec, extent=extents, quality=qualities)
+    return _roundtrip_execute(raw, enc, extents, gt_boxes, gt_valid, params,
+                              lanes, cfg)
+
+
+def roundtrip_padded_batched(raw, lr_pad, extents, qualities, gt_boxes,
+                             gt_valid, detector_params, *, tr1, tr2,
+                             bw_kbps, queue_delay=0.0,
+                             cfg: RoundtripConfig = RoundtripConfig(),
+                             device=None) -> dict:
+    """Mixed-ladder round trip with the rungs as data: the caller
+    downscales each stream to its rung and pads onto one canvas
+    (``full_lr_canvas`` for a canvas fixed whatever the rungs): lr_pad (S,
+    T, Hp, Wp), extents (S, 2) valid (h, w), qualities (S,) codec quality
+    factors.  ``cfg.level`` is ignored.  Lane s equals ``roundtrip_chunk``
+    on stream s at its rung."""
+    dev, raw, gt_boxes, gt_valid, params, lanes = _batch_inputs(
+        raw, gt_boxes, gt_valid, detector_params, device, tr1=tr1, tr2=tr2,
+        bw_kbps=bw_kbps, queue_delay=queue_delay)
+    return _roundtrip_ladder_body(
+        raw, torch.as_tensor(lr_pad, dtype=f32, device=dev),
+        torch.as_tensor(extents, device=dev), qualities, gt_boxes, gt_valid,
+        params, lanes, cfg)
+
+
+def roundtrip_ladder_batched(raw, gt_boxes, gt_valid, detector_params, *,
+                             tr1, tr2, bw_kbps, queue_delay=0.0,
+                             levels: tuple,
+                             cfg: RoundtripConfig = RoundtripConfig(),
+                             device=None) -> dict:
+    """Mixed bitrate-ladder rungs, one rung a stream (``levels``): each
+    stream downscales to its rung and pads onto the batch's largest LR
+    shape, then the masked encode and the extent-aware decode run all S
+    streams at once.  ``cfg.level`` is ignored.  Lane s equals
+    ``roundtrip_chunk(raw[s], ..., cfg=replace(cfg, level=levels[s]))``."""
+    dev, raw, gt_boxes, gt_valid, params, lanes = _batch_inputs(
+        raw, gt_boxes, gt_valid, detector_params, device, tr1=tr1, tr2=tr2,
+        bw_kbps=bw_kbps, queue_delay=queue_delay)
+    extents, qualities = ladder_batch_arrays(levels, *raw.shape[-2:],
+                                             device=dev)
+    return _roundtrip_ladder_body(raw, _downscale_pad(raw, levels), extents,
+                                  qualities, gt_boxes, gt_valid, params,
+                                  lanes, cfg)
 
 
 def roundtrip_oracle(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
@@ -132,28 +283,37 @@ def roundtrip_oracle(raw, gt_boxes, gt_valid, detector_params, *, tr1, tr2,
                      cfg: RoundtripConfig = RoundtripConfig(),
                      device=None) -> dict:
     """The composed execution: ``encode_chunk``, host-side classification
-    and a JPEG encode of each anchor on its own, then
+    and a JPEG encode of each anchor on its own (with the budget search, a
+    ``quality_for_budget`` probe of each anchor first), then
     ``decode_execute_chunk``.  ``roundtrip_chunk`` must agree with it."""
-    _check_ported(cfg)
-    dev, raw, gt_boxes, gt_valid, params = _inputs(
-        raw, gt_boxes, gt_valid, detector_params, device)
-    lr = downscale(raw, QUALITY_LADDER[cfg.level].scale)
-    enc = encode_chunk(lr, cfg.codec_for(), device=dev)
+    dev = resolve_device(device)
+    raw = torch.as_tensor(raw, dtype=f32, device=dev)
+    params = _params(detector_params, dev)
+    enc = encode_chunk(_downscale(raw[None], cfg.level)[0], cfg.codec_for(),
+                       device=dev)
     video_bits = B.seq_sum(enc.bits)
     types, _, _ = classify_frames(enc.frame_diff / 255.0,
                                   enc.residual_mag / 255.0, tr1, tr2)
     T = raw.shape[0]
+    anchors = torch.nonzero(types.cpu() == 1).flatten().tolist()
     anchor_hd = torch.zeros_like(raw)
     anchor_bits = torch.zeros((), dtype=f32, device=dev)
     anchor_q = torch.zeros((T,), dtype=f32, device=dev)
-    for i in torch.nonzero(types.cpu() == 1).flatten().tolist():
-        rec, bits = jpeg_encode_decode(raw[i], cfg.anchor_quality)
+    if cfg.anchor_search:
+        per_anchor = anchor_budget_bits(bw_kbps, video_bits,
+                                        float(len(anchors)), T, cfg.fps)
+    for i in anchors:
+        q_i = quality_for_budget(raw[i], per_anchor)[0] \
+            if cfg.anchor_search else cfg.anchor_quality
+        rec, bits = jpeg_encode_decode(raw[i], q_i)
         anchor_hd[i] = rec
         anchor_bits = anchor_bits + bits
-        anchor_q[i] = cfg.anchor_quality
+        anchor_q[i] = q_i
     out = decode_execute_chunk(
         enc, types, anchor_hd, gt_boxes, gt_valid, params, cfg.det_cfg,
         bw_kbps=bw_kbps, queue_delay=queue_delay,
         total_bits=video_bits + anchor_bits, costs=cfg.costs, roi=cfg.roi,
         device=dev)
-    return _finish(out, types, video_bits, anchor_bits, anchor_q)
+    out.update(types=types, video_bits=video_bits, anchor_bits=anchor_bits,
+               total_bits=video_bits + anchor_bits, anchor_q=anchor_q)
+    return out

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("motion_sad", "blockdct", "qtransfer", "roi_gather",
-           "flash_attention")
+           "flash_attention", "seq_sum")
 # no --use_fast_math: blockdct divides y / qtab and rounds exactly as the
 # reference does
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

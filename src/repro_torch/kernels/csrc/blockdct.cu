@@ -6,8 +6,11 @@
 //   inverse:       rec = D^T (q qtab) D   (the decoder's half)
 // Layouts: frames and rec are (F, H, W) raster, H and W multiples of 8; q is
 // (F, (H/8)(W/8), 8, 8) in block order (tiles row-major over the frame).  The
-// (nb, 8, 8) block form is the case F = nb, H = W = 8.  The level shift and
-// the clamp stay with the caller, as in the reference.
+// (nb, 8, 8) block form is the case F = nb, H = W = 8.  qtab is one (8, 8)
+// table for every frame, or (F, 8, 8), one table a frame (qstride 64): the
+// streams of a mixed-ladder batch have their own quantisers, and the anchor
+// budget search its own rung a frame.  The level shift and the clamp stay
+// with the caller, as in the reference.
 // Oracles: repro/kernels/blockdct/ref.py:blockdct_ref and the codec's
 // dct2 / quantize_with_table / idct2 (repro/codec/blockdct.py).
 //
@@ -24,8 +27,9 @@
 // 128 bytes of a frame.  A persistent grid of warps walks over groups of
 // four tiles, the next group's rows loaded while the current one is
 // computed.  D sits in 64 registers of every thread, loaded once; each
-// lane's column of qtab in 8.  The tile goes through the four products
-// without leaving the warp:
+// lane's column of its tile's table in 8 (loaded once, or a group at a time
+// with a table a frame: L1-resident loads).  The tile goes through the four
+// products without leaving the warp:
 //   rows:    lane r holds row r of x (two 16-byte loads) -> b = x D^T;
 //   columns: b is transposed through a shared tile of the warp's own
 //            (__syncwarp only) -> lane c holds column c of y = D b, q, and
@@ -85,17 +89,24 @@ __device__ __forceinline__ void load_row(const float* p, bool valid,
   v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
 }
 
-__device__ __forceinline__ void load_constants(const float* __restrict__ dmat,
-                                               const float* __restrict__ qtab,
-                                               int c, float (&d)[64],
-                                               float (&qt)[8]) {
+__device__ __forceinline__ void load_dct(const float* __restrict__ dmat,
+                                         float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const float4 v = __ldg(reinterpret_cast<const float4*>(dmat) + i);
     d[4 * i] = v.x; d[4 * i + 1] = v.y; d[4 * i + 2] = v.z; d[4 * i + 3] = v.w;
   }
+}
+
+// Column c of the quantisation table of tile g's frame: the one table when
+// qstride is 0, else frame g / nb's of (F, 8, 8) tables.
+__device__ __forceinline__ void load_qcolumn(const float* __restrict__ qtab,
+                                             int qstride, int g, bool valid,
+                                             const Geometry& geo, int c,
+                                             float (&qt)[8]) {
+  const long base = valid ? static_cast<long>(g / geo.nb) * qstride : 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) qt[k] = __ldg(qtab + k * 8 + c);
+  for (int k = 0; k < 8; ++k) qt[k] = __ldg(qtab + base + k * 8 + c);
 }
 
 // Second half, from lane c's column of a = q qtab: z = D^T a by columns,
@@ -138,15 +149,16 @@ __device__ __forceinline__ void inverse_columns(const float (&d)[64],
 __global__ void __launch_bounds__(kThreads)
 forward_quant_kernel(const float* __restrict__ frames,
                      const float* __restrict__ dmat,
-                     const float* __restrict__ qtab, Geometry geo,
-                     float* __restrict__ q_out, float* __restrict__ rec_out) {
+                     const float* __restrict__ qtab, int qstride,
+                     Geometry geo, float* __restrict__ q_out,
+                     float* __restrict__ rec_out) {
   __shared__ __align__(16) float stage[kWarps][2][kStage];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane >> 3, j = lane & 7;  // tile of the warp's 4; row/column
   float* sb = stage[warp][0] + t * kTileStride;
   float* sz = stage[warp][1] + t * kTileStride;
   float d[64], qt[8];
-  load_constants(dmat, qtab, j, d, qt);
+  load_dct(dmat, d);
 
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
   const int step = gridDim.x * kWarps;
@@ -156,7 +168,11 @@ forward_quant_kernel(const float* __restrict__ frames,
   long origin = valid ? tile_origin(g, geo) : 0;
   float x[8];
   load_row(frames + origin + static_cast<long>(j) * geo.W, valid, x);
+  load_qcolumn(qtab, 0, 0, false, geo, j, qt);
   for (; grp < groups; grp += step) {
+    // a warp's four tiles may lie in two frames: each lane takes its own
+    // tile's table
+    if (qstride) load_qcolumn(qtab, qstride, g, valid, geo, j, qt);
     // the next group's rows are in flight while this group is computed
     const int g_next = (grp + step) * kTilesPerWarp + t;
     const bool valid_next = grp + step < groups && g_next < geo.tiles;
@@ -215,26 +231,30 @@ __device__ __forceinline__ void load_column(const float* __restrict__ q_in,
 
 __global__ void __launch_bounds__(kThreads)
 inverse_kernel(const float* __restrict__ q_in, const float* __restrict__ dmat,
-               const float* __restrict__ qtab, Geometry geo,
+               const float* __restrict__ qtab, int qstride, Geometry geo,
                float* __restrict__ rec_out) {
   __shared__ __align__(16) float stage[kWarps][kStage];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane >> 3, j = lane & 7;
   float* sz = stage[warp] + t * kTileStride;
   float d[64], qt[8];
-  load_constants(dmat, qtab, j, d, qt);
+  load_dct(dmat, d);
+  load_qcolumn(qtab, 0, 0, false, geo, j, qt);
 
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
   const int step = gridDim.x * kWarps;
   int grp = blockIdx.x * kWarps + warp;
   int g = grp * kTilesPerWarp + t;
   bool valid = g < geo.tiles;
+  if (qstride) load_qcolumn(qtab, qstride, g, valid, geo, j, qt);
   float a[8];
   load_column(q_in, g, j, valid, qt, a);
   for (; grp < groups; grp += step) {
     const int g_next = (grp + step) * kTilesPerWarp + t;
     const bool valid_next = grp + step < groups && g_next < geo.tiles;
     float a_next[8];
+    // this group's a is scaled already: qt may take the next group's table
+    if (qstride) load_qcolumn(qtab, qstride, g_next, valid_next, geo, j, qt);
     load_column(q_in, g_next, j, valid_next, qt, a_next);
     const long origin = valid ? tile_origin(g, geo) : 0;
     __syncwarp();  // the previous group's reads of sz are done
@@ -280,36 +300,40 @@ bool geometry(long F, int H, int W, Geometry* geo) {
 }  // namespace
 
 // frames, rec: (F, H, W) f32 raster, H and W multiples of 8; q: (F, nb, 8, 8)
-// f32 in block order; dmat, qtab: (8, 8) f32.  frames, rec and dmat 16-byte
+// f32 in block order; dmat: (8, 8) f32; qtab: (8, 8) f32 (qstride 0) or
+// (F, 8, 8), one table a frame (qstride 64).  frames, rec and dmat 16-byte
 // aligned.
 extern "C" int blockdct_forward_quant(const float* frames, const float* dmat,
-                                      const float* qtab, long F, int H, int W,
-                                      float* q, float* rec,
+                                      const float* qtab, int qstride, long F,
+                                      int H, int W, float* q, float* rec,
                                       cudaStream_t stream) {
   static int cached = 0;
   Geometry geo;
-  if (!geometry(F, H, W, &geo)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry(F, H, W, &geo) || (qstride != 0 && qstride != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(frames) || !aligned16(rec) || !aligned16(dmat))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
   forward_quant_kernel<<<persistent_grid(forward_quant_kernel, groups,
                                          &cached),
-                         kThreads, 0, stream>>>(frames, dmat, qtab, geo, q,
-                                                rec);
+                         kThreads, 0, stream>>>(frames, dmat, qtab, qstride,
+                                                geo, q, rec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q: (F, nb, 8, 8) f32 in block order -> rec: (F, H, W) f32 raster.
+// q: (F, nb, 8, 8) f32 in block order -> rec: (F, H, W) f32 raster; qtab
+// as for blockdct_forward_quant.
 extern "C" int blockdct_inverse(const float* q, const float* dmat,
-                                const float* qtab, long F, int H, int W,
-                                float* rec, cudaStream_t stream) {
+                                const float* qtab, int qstride, long F, int H,
+                                int W, float* rec, cudaStream_t stream) {
   static int cached = 0;
   Geometry geo;
-  if (!geometry(F, H, W, &geo)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry(F, H, W, &geo) || (qstride != 0 && qstride != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(rec) || !aligned16(dmat))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
   inverse_kernel<<<persistent_grid(inverse_kernel, groups, &cached), kThreads,
-                   0, stream>>>(q, dmat, qtab, geo, rec);
+                   0, stream>>>(q, dmat, qtab, qstride, geo, rec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -182,9 +182,16 @@ def test_region_scores_match(encoded, roi):
     ref = JR.region_scores(jnp.asarray(mv), jnp.asarray(rq), (48, 64),
                            (HH, WW), JR.RoiConfig(**dataclasses.asdict(roi)))
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        R.region_scores(_t(mv), _t(rq), (48, 64), (HH, WW), roi,
-                        lr_extent=(48, 64))
+    # the mixed-ladder extent is ported: the full extent is the identity,
+    # and a smaller one matches the reference's
+    full = R.region_scores(_t(mv), _t(rq), (48, 64), (HH, WW), roi,
+                           lr_extent=(48, 64))
+    assert torch.equal(full, ours)
+    part = R.region_scores(_t(mv), _t(rq), (48, 64), (HH, WW), roi,
+                           lr_extent=(32, 48))
+    np.testing.assert_array_equal(part.numpy(), np.asarray(JR.region_scores(
+        jnp.asarray(mv), jnp.asarray(rq), (48, 64), (HH, WW),
+        JR.RoiConfig(**dataclasses.asdict(roi)), lr_extent=(32, 48))))
 
 
 @pytest.mark.parametrize("roi", [

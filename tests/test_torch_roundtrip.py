@@ -92,13 +92,31 @@ def test_roundtrip_oracle_agrees_with_roundtrip_chunk(stream, tr1, tr2):
 
 
 def test_roundtrip_rejects_unported_options(stream):
-    # the anchor budget search is the one option not ported yet
+    # the anchor budget search, the one option this test once found
+    # rejected, is ported: roundtrip_chunk and roundtrip_oracle with
+    # anchor_search=True hold against the reference's (rungs exact, bits
+    # rtol 1e-4 as above) and against each other bit for bit
     (raw, gtb, gtv), jparams = stream
     params = detector_params_from_jax(jparams, "cpu")
-    for fn in (roundtrip_chunk, roundtrip_oracle):
-        with pytest.raises(NotImplementedError, match="anchor_search"):
-            fn(raw, gtb, gtv, params, tr1=0.05, tr2=0.1, bw_kbps=6000.0,
-               cfg=RoundtripConfig(anchor_search=True), device="cpu")
+    kw = dict(tr1=0.05, tr2=0.1, bw_kbps=900.0)
+    cfg = RoundtripConfig(level=3, anchor_search=True)
+    jcfg = JRT.RoundtripConfig(level=3, anchor_search=True)
+    outs = []
+    for fn, jfn in ((roundtrip_chunk, JRT.roundtrip_chunk),
+                    (roundtrip_oracle, JRT.roundtrip_oracle)):
+        ours = fn(raw, gtb, gtv, params, cfg=cfg, device="cpu", **kw)
+        ref = jfn(raw, gtb, gtv, jparams, cfg=jcfg, **kw)
+        np.testing.assert_array_equal(ours["types"].numpy(),
+                                      np.asarray(ref["types"]))
+        np.testing.assert_array_equal(ours["anchor_q"].numpy(),
+                                      np.asarray(ref["anchor_q"]))
+        assert float(ours["anchor_q"].max()) not in (0.0, 70.0)
+        for k in ("anchor_bits", "total_bits"):
+            np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
+                                       rtol=1e-4, err_msg=k)
+        outs.append(ours)
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
 
 
 # ------------------------------------------------ decode-side pieces, exact

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
-    python3 chip_smoke.py --profile main|roi|batched|lm   (one profile)
+    python3 chip_smoke.py --profile main|roi|batched|control|lm
+                                                  (one profile)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -52,6 +53,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the number of streams), frames/s and peak memory, its lanes held
    against the single-stream runs; one batched chunk profiled in a
    process of its own;
+6c. control: the bi-level control plane (a SAC bandwidth controller, nine
+   A2C agents) through ``BiLevelTrainer.create`` / ``run_chunk`` /
+   ``run_chunk_loop`` / ``flush`` on the port's biswift_edge configuration
+   of nine 720p streams: the detector backend, 8 chunks of the stacked
+   path against 8 of the per-stream loop (both updates engaged), held
+   against each other; 3 chunks with the ROI gate and the budget search;
+   140 chunks of the analytic backend at the paper's hyper-parameters,
+   the control step's times acting alone, with the A2C update and with
+   both; the steps and one detector chunk profiled in a process of their
+   own (device ops, busy share, device-to-host bytes);
 7. lm: llama3.2-1B at full width and depth (random weights from a seed)
    serves two 4096-token requests: prefill through ``flash_attention``
    (16 launches a prefill, nothing else), 32 greedy decode steps over the
@@ -1894,6 +1905,429 @@ def phase_profile_batched(params, det_cfg) -> None:
                    prof, wall)
 
 
+# [control]: the bi-level control plane (SAC controller, nine A2C agents)
+# choosing the nine 720p streams' bandwidths and thresholds chunk by chunk,
+# through BiLevelTrainer.create / run_chunk / run_chunk_loop / flush
+CONTROL_CHUNKS = 8              # the detector backend, each trainer
+CONTROL_ROI_CHUNKS = 3
+CONTROL_ANALYTIC_CHUNKS = 140   # the SAC update engages at the paper's 128
+CONTROL_LOW_BATCH, CONTROL_MINIBATCH = 4, 6     # both updates in 8 chunks
+# one round-trip call a chunk for the nine streams (one frame shape): the
+# launches of one stream, the encode's blockdct forwards at a table a frame
+# (each stream's rung); with the ROI gate and the budget search as well
+CONTROL_LAUNCHES = MAIN_LAUNCHES
+CONTROL_ROI_LAUNCHES = dict(SEARCH_LAUNCHES, roi_gather=1)
+# where the card does not give the stacked and the loop trainer the same
+# bits (a reduction's order may follow its output count), each must stay
+# within: the actions, proportions and states written to replay (the CPU
+# port drifts from the reference by at most 2.1e-5 over 8 chunks); the
+# chunk metrics and rewards, relative, on chunks whose frame types agree
+# (and the run fails if a type differs: that needs a feature within ~1e-6
+# of its threshold); the parameters, by 3 lr a step that ran (an Adam step
+# moves an element by about lr at most, so two runs whose near-zero
+# gradients round to other signs part by up to 2 lr a step)
+CONTROL_ACTION_TOL = 1e-4
+CONTROL_METRIC_TOL = 1e-4
+
+
+def _control_cfg(**kw):
+    """The port's biswift_edge configuration of nine 720p streams, its
+    streams the [batched] ones (paper_stream_mix scaled to 720 px)."""
+    import dataclasses
+    from repro_torch.configs import biswift_edge
+    _, env, _ = biswift_edge.build(BATCHED_STREAMS, H_HD, W_HD)
+    return dataclasses.replace(env, streams=tuple(_streams(BATCHED_STREAMS)),
+                               **kw)
+
+
+def _control_trainer(cfg, det, low_batch: int, minibatch: int):
+    import dataclasses
+    from repro_torch.core.bilevel import BiLevelTrainer
+    tr = BiLevelTrainer.create(cfg, seed=0, detector=det,
+                               low_batch=low_batch)
+    tr.controller.cfg = dataclasses.replace(tr.controller.cfg,
+                                            minibatch=minibatch)
+    return tr
+
+
+class _ChunkClock:
+    """Splits a chunk's wall time at the env step: the observation and
+    ``bilevel_step`` before it (the control step), ``env.step`` itself,
+    and what follows (the replay writes and the next chunk's render and
+    features); and times each ``bilevel_step`` call on its own, host time
+    to return and CUDA events, with its update flags."""
+
+    def __init__(self, trainer):
+        import torch
+        from repro_torch.core import bilevel as BL
+        self.torch, self.BL = torch, BL
+        self.step_fn = BL.bilevel_step
+        self.env_step = trainer.env.step
+        trainer.env.step = self._env_step
+        self.steps = []
+
+    def _env_step(self, *a, **k):
+        self.torch.cuda.synchronize()
+        self.t_env = time.perf_counter()
+        out = self.env_step(*a, **k)
+        self.torch.cuda.synchronize()
+        self.env_ms = (time.perf_counter() - self.t_env) * 1e3
+        return out
+
+    def _bilevel_step(self, *a, **k):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        out = self.step_fn(*a, **k)
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        self.steps.append({"host_ms": host, "ms": start.elapsed_time(end),
+                           "do_low": k["do_low"], "do_high": k["do_high"]})
+        return out
+
+    def chunk(self, run) -> dict:
+        """One chunk of ``run`` (``run_chunk`` or ``run_chunk_loop``):
+        its output and times, launches by kernel and peak memory."""
+        from repro_torch.kernels import build
+        torch = self.torch
+        self.BL.bilevel_step = self._bilevel_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            self.BL.bilevel_step = self.step_fn
+        wall = (time.perf_counter() - t0) * 1e3
+        control = (self.t_env - t0) * 1e3
+        return {"out": out, "wall_ms": wall, "env_ms": self.env_ms,
+                "control_ms": control,
+                "after_ms": wall - control - self.env_ms,
+                "launches": dict(build.LAUNCHES),
+                "peak": torch.cuda.max_memory_allocated()}
+
+
+def _rungs(results) -> list:
+    from repro_torch.codec.rate_model import (ladder_for_bandwidth,
+                                              video_bandwidth_share)
+    return [ladder_for_bandwidth(video_bandwidth_share(x["bw_kbps"]))
+            for x in results]
+
+
+def _print_chunk(tag: str, c: int, r: dict) -> None:
+    metrics, results = r["out"][0], r["out"][1]
+    n = sum(len(x["types"]) for x in results)
+    mix = [sum(int((x["types"] == k).sum()) for x in results)
+           for k in (1, 2, 3)]
+    print(f"[control] {tag} chunk {c}: observe + bilevel_step "
+          f"{r['control_ms']:.1f} ms, env.step {r['env_ms']:.1f} ms, after "
+          f"{r['after_ms']:.1f} ms, wall {r['wall_ms']:.1f} ms "
+          f"({n / r['wall_ms'] * 1e3:.1f} frames/s against the "
+          f"{FLOOR_FPS:.0f} floor); launches {r['launches']}; peak "
+          f"{r['peak'] / 2**30:.2f} GiB; pipelines {mix}, rungs "
+          f"{_rungs(results)}, mean_acc {metrics['mean_acc']:.4f}")
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _hold_trainers(stacked, loop, chunks_s, chunks_l) -> None:
+    """The stacked trainer (run_chunk x n + flush) against the loop
+    trainer (run_chunk_loop x n): bit for bit, or within the CONTROL_*
+    tolerances, each largest difference printed."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import tree_leaves
+    for c, (a, b) in enumerate(zip(chunks_s, chunks_l)):
+        for ra, rb in zip(a["out"][1], b["out"][1]):
+            if not np.array_equal(ra["types"], rb["types"]):
+                raise AssertionError(f"[control] chunk {c} stream "
+                                     f"{ra['stream']}: frame types differ")
+    metrics = [(a["out"][0], b["out"][0]) for a, b in zip(chunks_s, chunks_l)]
+    diffs = {
+        "metrics": max(abs(x[k] - y[k]) / max(abs(y[k]), 1.0)
+                       for x, y in metrics for k in y),
+        "replay states": max(_max_diff(getattr(stacked.low_buffer, k),
+                                       getattr(loop.low_buffer, k))
+                             for k in ("s", "s2")),
+        "replay actions": _max_diff(stacked.low_buffer.a, loop.low_buffer.a),
+        "replay rewards": _max_diff(stacked.low_buffer.r, loop.low_buffer.r),
+        "controller replay": max(
+            _max_diff(getattr(stacked.controller.buffer, k),
+                      getattr(loop.controller.buffer, k))
+            for k in ("s", "a", "r", "s2")),
+        "proportions": _max_diff(stacked.controller._current,
+                                 loop.controller._current),
+    }
+    nets = {"low actor": ("actor", stacked.low_cfg.lr_actor, "opt_a"),
+            "low critic": ("critic", stacked.low_cfg.lr_critic, "opt_c")}
+    params = {name: (stacked.low_stack[k], loop.low_stack[k], lr,
+                     int(loop.low_stack[opt]["step"].max()))
+              for name, (k, lr, opt) in nets.items()}
+    scfg = stacked.controller.cfg
+    for net, lr in (("actor", scfg.lr_policy), ("value", scfg.lr_value),
+                    ("q1", scfg.lr_q), ("q2", scfg.lr_q)):
+        params[f"SAC {net}"] = (stacked.controller.agent[net],
+                                loop.controller.agent[net], lr,
+                                loop.controller.updates)
+    for name, (a, b, lr, n) in params.items():
+        d = max(_max_diff(x.cpu(), y.cpu())
+                for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        diffs[f"{name} params"] = d
+        if d > 3 * lr * n:
+            raise AssertionError(f"[control] {name} params differ by {d} > "
+                                 f"3 lr x {n} steps")
+    every = zip(tree_leaves(stacked.low_stack)
+                + tree_leaves(stacked.controller.agent),
+                tree_leaves(loop.low_stack)
+                + tree_leaves(loop.controller.agent))
+    if all(v == 0.0 for v in diffs.values()) \
+            and all(torch.equal(x, y) for x, y in every):
+        print(f"[control] stacked run_chunk x {len(chunks_s)} + flush == "
+              f"run_chunk_loop x {len(chunks_l)} bit for bit: metrics, "
+              "replay contents, proportions, thresholds and every parameter "
+              "and optimiser moment")
+        return
+    print("[control] stacked vs loop: not bit for bit on this card; largest "
+          f"differences { {k: float(f'{v:.3g}') for k, v in diffs.items()} }")
+    for k in ("replay states", "replay actions", "proportions",
+              "controller replay"):
+        if diffs[k] > CONTROL_ACTION_TOL:
+            raise AssertionError(f"[control] {k} differ by {diffs[k]}")
+    for k in ("metrics", "replay rewards"):
+        if diffs[k] > CONTROL_METRIC_TOL:
+            raise AssertionError(f"[control] {k} differ by {diffs[k]}")
+
+
+def phase_control(params, det_cfg) -> dict:
+    """[control]: (1) detector backend, two trainers from one seed, one
+    through run_chunk x 8 + flush and one through run_chunk_loop x 8, in
+    turns chunk by chunk, held against each other; (2) three chunks with
+    the ROI gate and the budget search; (3) the analytic backend at the
+    paper's hyper-parameters (low batch 32, SAC minibatch 128), 140
+    chunks, the bilevel_step's times in three parts.  Returns each run's
+    launch counts."""
+    import collections
+    import statistics as st
+    from repro_torch.core.roi import RoiConfig
+    det = (params, det_cfg)
+    launches = {}
+
+    # (1) the detector backend, stacked and loop in turns
+    cfg = _control_cfg(accuracy_backend="detector")
+    stacked = _control_trainer(cfg, det, CONTROL_LOW_BATCH, CONTROL_MINIBATCH)
+    loop = _control_trainer(cfg, det, CONTROL_LOW_BATCH, CONTROL_MINIBATCH)
+    clocks = {"stacked": _ChunkClock(stacked), "loop": _ChunkClock(loop)}
+    runs = {"stacked": stacked.run_chunk, "loop": loop.run_chunk_loop}
+    chunks = {tag: [] for tag in runs}
+    for c in range(CONTROL_CHUNKS):
+        for tag, run in runs.items():
+            r = clocks[tag].chunk(run)
+            _expect_launches(f"[control] detector {tag} chunk {c}",
+                             CONTROL_LAUNCHES)
+            chunks[tag].append(r)
+            _print_chunk(f"detector {tag}", c, r)
+    stacked.flush()
+    for tag, tr in (("stacked", stacked), ("loop", loop)):
+        print(f"[control] detector {tag}: A2C updates "
+              f"{int(tr.low_stack['opt_a']['step'].max())} a stream, SAC "
+              f"updates {tr.controller.updates}; last chunk's logs "
+              f"{sorted(chunks[tag][-1]['out'][3])}")
+        if tr.controller.updates < 1 \
+                or int(tr.low_stack["opt_a"]["step"].min()) < 1:
+            raise AssertionError(f"[control] {tag}: an update never ran")
+        for r in chunks[tag]:
+            for x in r["out"][1]:
+                if not all(math.isfinite(x[k]) for k in
+                           ("accuracy", "latency", "bits", "reward")) \
+                        or x["types"][0] != 1 or len(x["types"]) != T:
+                    raise AssertionError(f"[control] {tag}: bad result {x}")
+    _hold_trainers(stacked, loop, chunks["stacked"], chunks["loop"])
+    for tag in runs:
+        rest = chunks[tag][1:]
+        wall = st.median(r["wall_ms"] for r in rest)
+        per = collections.Counter()
+        for r in chunks[tag]:
+            per.update(r["launches"])
+        launches[f"control_{tag}"] = dict(per)
+        steps = clocks[tag].steps[1:]
+        step = "" if not steps else (
+            f"; bilevel_step host {st.median(s['host_ms'] for s in steps):.2f}"
+            f" ms, events {st.median(s['ms'] for s in steps):.2f} ms")
+        print(f"[control] detector {tag}: {len(chunks[tag])} chunks of "
+              f"{BATCHED_STREAMS}x{T}x{H_HD}x{W_HD}, median of the rest: "
+              f"observe + bilevel_step "
+              f"{st.median(r['control_ms'] for r in rest):.1f} ms, env.step "
+              f"{st.median(r['env_ms'] for r in rest):.1f} ms, after "
+              f"{st.median(r['after_ms'] for r in rest):.1f} ms, wall "
+              f"{wall:.1f} ms ({BATCHED_STREAMS * T / wall * 1e3:.1f} "
+              f"frames/s against the {FLOOR_FPS:.0f} floor); peak "
+              f"{max(r['peak'] for r in chunks[tag]) / 2**30:.2f} GiB{step}")
+    del stacked, loop, clocks, chunks, runs
+
+    # (2) the ROI gate and the budget search
+    cfg = _control_cfg(accuracy_backend="detector", roi=RoiConfig(**ROI),
+                       anchor_search=True)
+    tr = _control_trainer(cfg, det, CONTROL_LOW_BATCH, CONTROL_MINIBATCH)
+    clock = _ChunkClock(tr)
+    per = collections.Counter()
+    for c in range(CONTROL_ROI_CHUNKS):
+        r = clock.chunk(tr.run_chunk)
+        _expect_launches(f"[control] roi+search chunk {c}",
+                         CONTROL_ROI_LAUNCHES)
+        per.update(r["launches"])
+        _print_chunk("roi+search", c, r)
+    tr.flush()
+    launches["control_roi_search"] = dict(per)
+    print(f"[control] roi+search: launches a chunk "
+          f"{ {k: v / CONTROL_ROI_CHUNKS for k, v in sorted(per.items())} }:"
+          f" roi_gather {per['roi_gather'] // CONTROL_ROI_CHUNKS}, "
+          f"blockdct_forward {per['blockdct_forward'] // CONTROL_ROI_CHUNKS} "
+          "at a table a frame (the mixed-rung encode, the search's rungs)")
+    del tr, clock
+
+    # (3) the analytic backend at the paper's hyper-parameters
+    tr = _control_trainer(_control_cfg(), None, 32, 128)
+    clock = _ChunkClock(tr)
+    walls = []
+    for c in range(CONTROL_ANALYTIC_CHUNKS):
+        r = clock.chunk(tr.run_chunk)
+        if r["launches"]:
+            raise AssertionError(f"[control] analytic chunk {c} launched "
+                                 f"{r['launches']}")
+        walls.append(r)
+    tr.flush()
+    parts = {"acting alone": (False, False),
+             "with the A2C update": (True, False),
+             "with both updates": (True, True)}
+    for name, flags in parts.items():
+        idx = [i for i, s in enumerate(clock.steps)
+               if (s["do_low"], s["do_high"]) == flags][1:]
+        if not idx:
+            raise AssertionError(f"[control] analytic: no step {name}")
+        sel = [clock.steps[i] for i in idx]
+        print(f"[control] analytic bilevel_step {name}: {len(sel)} steps, "
+              f"median host {st.median(s['host_ms'] for s in sel):.2f} ms, "
+              f"events {st.median(s['ms'] for s in sel):.2f} ms; chunk wall "
+              f"{st.median(walls[i]['wall_ms'] for i in idx):.1f} ms, "
+              f"env.step {st.median(walls[i]['env_ms'] for i in idx):.1f} "
+              f"ms, after {st.median(walls[i]['after_ms'] for i in idx):.1f}"
+              " ms")
+    print(f"[control] analytic: {CONTROL_ANALYTIC_CHUNKS} chunks, SAC updates "
+          f"{tr.controller.updates}, A2C updates "
+          f"{int(tr.low_stack['opt_a']['step'].max())} a stream; mean_acc "
+          f"first {walls[0]['out'][0]['mean_acc']:.4f}, last "
+          f"{walls[-1]['out'][0]['mean_acc']:.4f}; peak "
+          f"{max(r['peak'] for r in walls) / 2**30:.2f} GiB; the steps' "
+          "launches: [profile] control")
+    return launches
+
+
+def _d2h_bytes(prof, path) -> tuple:
+    """(device-to-host bytes, copies) of a profiled window, from the
+    memcpy events of its exported trace; (None, n) where the trace gives
+    no byte counts."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if "DtoH" in e.get("name", "")
+              and e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    if not copies or any(s is None for s in sizes):
+        return None, len(copies)
+    return sum(sizes), len(copies)
+
+
+def phase_profile_control(params, det_cfg) -> None:
+    """``--profile control``: (1) the analytic backend at the paper's
+    hyper-parameters, one bilevel_step profiled acting alone, one with the
+    A2C update and one with both (by chunk 129): device ops (launches and
+    copies) and host ops; (2) the detector backend, one chunk with both
+    updates on under torch.profiler after 7 unprofiled: busy share, top
+    device rows, host operators and device-to-host bytes."""
+    import pathlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import bilevel as BL
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out_dir = pathlib.Path(ROOT) / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    tr = _control_trainer(_control_cfg(), None, 32, 128)
+    step_fn = BL.bilevel_step
+    want = {(False, False): "acting alone", (True, False):
+            "with the A2C update", (True, True): "with both updates"}
+    seen = {(False, False)}        # chunk 0's step: the first act
+
+    def profiled(*a, **k):
+        flags = (k["do_low"], k["do_high"])
+        if flags in seen:
+            return step_fn(*a, **k)
+        seen.add(flags)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            out = step_fn(*a, **k)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        dev = [e for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e for e in rows
+                if e.device_type == torch.autograd.DeviceType.CPU]
+        print(f"[profile] control bilevel_step {want[flags]} (chunk "
+              f"{tr.env.t}): {sum(e.count for e in dev)} device ops, "
+              f"{sum(e.self_device_time_total for e in dev) / 1e3:.3f} ms "
+              f"busy; {sum(e.count for e in host)} host ops, "
+              f"{sum(e.self_cpu_time_total for e in host) / 1e3:.2f} ms")
+        return out
+
+    BL.bilevel_step = profiled
+    try:
+        tr.run_chunk()
+        seen.discard((False, False))
+        while len(seen) < len(want):
+            tr.run_chunk()
+    finally:
+        BL.bilevel_step = step_fn
+    del tr
+
+    tr = _control_trainer(_control_cfg(accuracy_backend="detector"),
+                          (params, det_cfg), CONTROL_LOW_BATCH,
+                          CONTROL_MINIBATCH)
+    warm = []
+    for _ in range(CONTROL_CHUNKS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_chunk()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    if not (tr._pending["do_low"] and tr._pending["do_high"]):
+        raise AssertionError("[profile] control: both updates must be due")
+    print(f"[profile] control: alone in a process, unprofiled chunks "
+          f"{', '.join(f'{v:.1f}' for v in warm)} ms")
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.run_chunk()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _print_profile(f"control: one detector chunk {BATCHED_STREAMS}x{T}x"
+                   f"{H_HD}x{W_HD} with both updates", prof, wall)
+    n_bytes, n = _d2h_bytes(prof, out_dir / "control_chunk.json")
+    frames = BATCHED_STREAMS * T * H_HD * W_HD * F32
+    print(f"[profile] control: device-to-host copies in the chunk: {n}, "
+          + ("bytes not measured (the trace gives none)" if n_bytes is None
+             else f"{n_bytes} bytes ({n_bytes / 1024:.1f} KiB); one chunk's "
+             f"frames are {frames / 2**20:.0f} MiB"))
+
+
 def profile_in_child(tag: str) -> None:
     """``phase_profile`` of one path in a fresh process; its lines are
     printed here."""
@@ -1922,6 +2356,8 @@ def main(argv) -> int:
             phase_profile_lm()
         elif argv[1] == "batched":
             phase_profile_batched(params, det_cfg)
+        elif argv[1] == "control":
+            phase_profile_control(params, det_cfg)
         else:
             phase_profile(argv[1], params, paths[argv[1]][0])
         return 0
@@ -1965,6 +2401,8 @@ def main(argv) -> int:
     launches["parity"] = phase_small_parity(params, det_cfg)
     launches.update(phase_batched(params, det_cfg))
     profile_in_child("batched")
+    launches.update(phase_control(params, det_cfg))
+    profile_in_child("control")
     del params
     launches["lm"] = phase_lm()
     profile_in_child("lm")

@@ -1,5 +1,6 @@
-"""The 5-level quality ladder of §VI-A, ladder shapes, and the down/up
-scalers (port of ``repro.codec.rate_model``)."""
+"""The 5-level quality ladder of §VI-A, the bandwidth -> rung selection,
+ladder shapes, and the down/up scalers (port of
+``repro.codec.rate_model``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +23,26 @@ QUALITY_LADDER = (
     QualityLevel("720p", 2000.0, 2 / 3, 65.0),
     QualityLevel("1080p", 5000.0, 1.0, 80.0),
 )
+
+
+# fraction of a stream's allocation the video encoder may spend; the rest
+# is headroom reserved for the JPEG anchors (§IV-A)
+ANCHOR_HEADROOM = 0.65
+
+
+def video_bandwidth_share(bw_kbps: float) -> float:
+    """The bandwidth the ladder selection sees after anchor headroom."""
+    return bw_kbps * ANCHOR_HEADROOM
+
+
+def ladder_for_bandwidth(bw_kbps: float, headroom: float = 0.95) -> int:
+    """Highest ladder level whose bitrate fits within bw_kbps * headroom:
+    the encoder follows the bandwidth the controller allocated (§IV-A)."""
+    level = 0
+    for i, ql in enumerate(QUALITY_LADDER):
+        if ql.bitrate_kbps <= bw_kbps * headroom:
+            level = i
+    return level
 
 
 def lr_shape_for_scale(scale: float, H: int, W: int) -> tuple[int, int]:

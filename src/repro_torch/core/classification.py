@@ -51,3 +51,14 @@ def classify_frames(frame_diff, residual_mag, tr1, tr2):
     dev = frame_diff.device
     return (torch.from_numpy(types).to(dev), torch.from_numpy(X).to(dev),
             torch.from_numpy(R).to(dev))
+
+
+def anchor_fraction(types):
+    """The share of a chunk's frames that are anchors (type 1)."""
+    return (types == 1).float().mean(-1)
+
+
+def pipeline_fractions(types):
+    """(..., 3) shares of a chunk's frames on pipelines 1, 2 and 3."""
+    return torch.stack([(types == k).float().mean(-1) for k in (1, 2, 3)],
+                       -1)

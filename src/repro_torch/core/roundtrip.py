@@ -211,12 +211,12 @@ def ladder_batch_arrays(levels, H: int, W: int, *, device=None):
     return extents, qualities
 
 
-def _downscale_pad(raw, levels):
-    """Each stream downscaled to its own rung, zero-padded onto the batch's
-    largest LR shape."""
+def _downscale_pad(raw, levels, canvas=None):
+    """Each stream downscaled to its own rung, zero-padded onto ``canvas``
+    (hp, wp), by default the batch's largest LR shape."""
     S, T, H, W = raw.shape
     shapes = [ladder_lr_shape(level, H, W) for level in levels]
-    hp, wp = max(h for h, _ in shapes), max(w for _, w in shapes)
+    hp, wp = canvas or (max(h for h, _ in shapes), max(w for _, w in shapes))
     return torch.stack([
         torch.nn.functional.pad(downscale(raw[s],
                                           QUALITY_LADDER[level].scale),

@@ -83,6 +83,22 @@ def init_params(generator: torch.Generator, specs_tree, device) -> dict:
             for k, v in specs_tree.items()}
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, keys sorted at every level (the order
+    in which ``jax.tree.leaves`` lists a dict's leaves)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts of one structure."""
+    if not isinstance(tree, dict):
+        return fn(tree, *rest)
+    return {k: tree_map(fn, v, *(r[k] for r in rest))
+            for k, v in tree.items()}
+
+
 def param_count(specs_tree) -> int:
     return sum(math.prod(s.shape) for s in _leaves(specs_tree))
 

@@ -1,5 +1,5 @@
-"""Carry weights across from the JAX reference: the TinyDetector's and
-the decoder LM's."""
+"""Carry weights across from the JAX reference: the TinyDetector's, the
+decoder LM's and the control plane's agents (optimiser state included)."""
 from __future__ import annotations
 
 import numpy as np
@@ -40,3 +40,27 @@ def lm_params_from_jax(params: dict, device=None) -> dict:
             else torch.from_numpy(np.array(value, np.float32))
             .to(torch.bfloat16).to(dev)
             for name, value in params.items()}
+
+
+def _agent_from_jax(tree, dev):
+    """A nested dict of arrays -> the same nesting of tensors on ``dev``,
+    each with storage of its own (the reference's ``value_target`` is the
+    value net's very arrays until the first update), dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: _agent_from_jax(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def a2c_stack_from_jax(low_stack: dict, device=None) -> dict:
+    """The reference's stacked A2C agents (``a2c.init_stacked``'s pytree
+    as numpy arrays: actor, critic, and their Adam moments and step, each
+    with a leading stream axis) -> the port's stack on the resolved
+    device."""
+    return _agent_from_jax(low_stack, resolve_device(device))
+
+
+def sac_agent_from_jax(agent: dict, device=None) -> dict:
+    """The reference's SAC agent (actor, value, value_target, q1, q2 and
+    their Adam states, as numpy arrays) -> the port's on the resolved
+    device."""
+    return _agent_from_jax(agent, resolve_device(device))

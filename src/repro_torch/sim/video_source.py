@@ -168,17 +168,29 @@ def generate_chunk(cfg: StreamConfig, t0: int, n_frames: int, *,
     return frames[0], boxes[0], valid[0]
 
 
+def stacked_params(cfgs, *, device=None) -> dict:
+    """The seed-derived object and background state of S streams sharing
+    one ``batch_signature``, stacked on the resolved device: what
+    ``render_stacked`` draws any chunk of those streams from."""
+    sigs = {cfg.batch_signature for cfg in cfgs}
+    if len(sigs) != 1:
+        raise ValueError(
+            f"generate_chunk_batched needs one shape signature, got {sigs}; "
+            "group heterogeneous stream mixes by cfg.batch_signature")
+    return _stacked_params(cfgs, resolve_device(device))
+
+
+def render_stacked(params: dict, t0: int, n_frames: int):
+    """(frames (S, T, H, W), boxes (S, T, N, 4), valid (S, T, N)) of the
+    streams of ``stacked_params`` from frame ``t0``, on their device."""
+    H, W = params["bg"].shape[-2:]
+    return _render(params, t0, n_frames, H, W)
+
+
 def generate_chunk_batched(cfgs, t0: int, n_frames: int, *, device=None):
     """Render S streams sharing one ``batch_signature`` (height, width,
     n_objects) at once: (frames (S, T, H, W), boxes (S, T, N, 4), valid
     (S, T, N)) on the resolved device, each lane bit for bit its
     ``generate_chunk``.  Group a mixed set with ``group_by_signature``
     first."""
-    sigs = {cfg.batch_signature for cfg in cfgs}
-    if len(sigs) != 1:
-        raise ValueError(
-            f"generate_chunk_batched needs one shape signature, got {sigs}; "
-            "group heterogeneous stream mixes by cfg.batch_signature")
-    dev = resolve_device(device)
-    H, W, _ = next(iter(sigs))
-    return _render(_stacked_params(cfgs, dev), t0, n_frames, H, W)
+    return render_stacked(stacked_params(cfgs, device=device), t0, n_frames)

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
-    python3 chip_smoke.py --profile main|roi|batched|control|lm
+    python3 chip_smoke.py --profile main|roi|batched|control|serving|lm
                                                   (one profile)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
@@ -63,6 +63,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the control step's times acting alone, with the A2C update and with
    both; the steps and one detector chunk profiled in a process of their
    own (device ops, busy share, device-to-host bytes);
+6d. serving: the serving plane at the paper's load.
+   ``repro_torch.launch.serve.main`` serves nine 720p streams, three
+   30-frame chunks, under the SAC controller after its 150-step
+   quick-train: the rounds, the split by call (render, encode_hybrid,
+   submit_chunk, flush and the detector, poll, NMS and F1), the launches
+   of every stream-chunk, peak memory, F1 and latency.  ``run_soak`` at
+   nine 720p streams, 12 chunks: loss-burst chunk-sequential and
+   batch-submit, equal in every host-decided field; shard-chaos on two
+   logical shards, a shard evicted and recovered, one detector dispatch a
+   flush group.  One batch-submit round with the ROI gate and the anchor
+   search, with its launches; the legacy decode of a 720p packet against
+   the fused one; 64x96 packets through the runtime on the card against
+   the CPU; one round profiled in a process of its own (busy share,
+   device ops, host operators, device-to-host copies and bytes);
 7. lm: llama3.2-1B at full width and depth (random weights from a seed)
    serves two 4096-token requests: prefill through ``flash_attention``
    (16 launches a prefill, nothing else), 32 greedy decode steps over the
@@ -2328,6 +2342,480 @@ def phase_profile_control(params, det_cfg) -> None:
              f"frames are {frames / 2**20:.0f} MiB"))
 
 
+# [serving]: the serving plane (the hybrid encoder at the camera, the edge
+# runtime's submit/flush/poll, the chaos soak, the serve launcher) at the
+# paper's load: nine 720p cameras, 30-frame chunks
+SERVE_ARGV = ["--streams", "9", "--height", str(H_HD), "--width", str(W_HD),
+              "--chunk-frames", str(T), "--chunks", "3", "--controller",
+              "sac"]
+# the launches a stream-chunk of the serve loop: encode_hybrid's video
+# encode (29 searches, 29 compensations, 30 transforms, 2 sums), its probe
+# of the first anchor at five qualities and its anchors (one blockdct
+# forward each) and the sums of the video, probe and anchor bits; the
+# runtime's default path launches no kernel (type-2 frames are staged as
+# upscaled LR, with no quality transfer, as in the reference)
+SERVE_LAUNCHES = {"motion_sad": T - 1, "qtransfer": T - 1,
+                  "blockdct_forward": T + 2, "seq_sum": 5}
+# one batch-submit round with the ROI gate and the anchor search: a stream's
+# rung bits take one blockdct forward and one seq_sum a rung (6 rungs), the
+# round's one detector dispatch one roi_gather
+ROI_SEARCH_LAUNCHES = {"blockdct_forward": 6 * BATCHED_STREAMS,
+                       "seq_sum": 6 * BATCHED_STREAMS, "roi_gather": 1}
+LEGACY_LAUNCHES = {"blockdct_inverse": 1, "qtransfer": 1}
+SOAK = dict(n_streams=BATCHED_STREAMS, n_chunks=12, chunk_frames=T,
+            height=H_HD, width=W_HD, mean_kbps=54000.0)
+# the soak fields decided on the host, which the sync and batch-submit
+# soaks must share
+SOAK_FIELDS = ("accounting_ok", "delivered_fps", "infer_fps", "fps_norm",
+               "infer_norm", "stream_stats", "recovery", "recovery_infer",
+               "fault_log", "queue_leaks", "active_shards_final",
+               "hedged_dispatches", "forecast_holds")
+
+
+class _Split:
+    """Exclusive time by name of wrapped functions, each call bracketed
+    by device synchronisations (so that a call is charged the device work
+    it queued); a wrapped call inside another counts only toward its own
+    name."""
+
+    def __init__(self):
+        import collections
+        self.ms = collections.defaultdict(float)
+        self.calls = collections.Counter()
+        self._stack = []
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                self.ms[name] += dt - self._stack.pop()
+                self.calls[name] += 1
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+
+def _patched(*triples):
+    """A context that sets each (object, attribute, value) for its
+    length."""
+    import contextlib
+    from unittest import mock
+    stack = contextlib.ExitStack()
+    for obj, name, value in triples:
+        stack.enter_context(mock.patch.object(obj, name, value))
+    return stack
+
+
+def _serve_run() -> dict:
+    """serve.main at the paper's load with its default quick-train, the
+    split of each round and the launches of each stream-chunk."""
+    import collections
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.runtime import EdgeRuntime
+    from repro_torch.sim.env import MultiStreamEnv
+    split = _Split()
+    total = collections.Counter()
+    state = {"chunks": 0, "rounds": [], "training": False}
+
+    def chunk_boundary():
+        if state["chunks"]:
+            _expect_launches(f"[serving] serve stream-chunk "
+                             f"{state['chunks'] - 1}", SERVE_LAUNCHES)
+        total.update(build.LAUNCHES)
+        build.reset_launches()
+
+    encode = split.wrap("encode_hybrid", S.encode_hybrid)
+    # the cameras' frames, apart from the quick-train's
+    renders = {False: split.wrap("render", S.generate_chunk),
+               True: split.wrap("render_train", S.generate_chunk)}
+    train = split.wrap("quick_train", S.quick_train)
+
+    def quick_train(*a, **k):
+        state["training"] = True
+        try:
+            return train(*a, **k)
+        finally:
+            state["training"] = False
+
+    def render(*a, **k):
+        return renders[state["training"]](*a, **k)
+
+    def encode_counted(*a, **k):
+        chunk_boundary()
+        state["chunks"] += 1
+        return encode(*a, **k)
+
+    observe = MultiStreamEnv.observe_high
+
+    def observe_marked(self):
+        state["rounds"].append(time.perf_counter())
+        return observe(self)
+
+    patches = _patched(
+        (S, "encode_hybrid", encode_counted),
+        (S, "quick_train", quick_train),
+        (S, "generate_chunk", render),
+        (S, "chunk_f1", split.wrap("nms_f1", S.chunk_f1)),
+        (EdgeRuntime, "submit_chunk",
+         split.wrap("submit_chunk", EdgeRuntime.submit_chunk)),
+        (EdgeRuntime, "flush", split.wrap("flush", EdgeRuntime.flush)),
+        (EdgeRuntime, "poll", split.wrap("poll", EdgeRuntime.poll)),
+        (MultiStreamEnv, "observe_high",
+         split.wrap("observe_high", observe_marked)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with patches:
+        out = S.main(SERVE_ARGV)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        chunk_boundary()
+    n_chunks = state["chunks"]
+    if n_chunks != 3 * BATCHED_STREAMS:
+        raise AssertionError(f"[serving] serve encoded {n_chunks} chunks")
+    if any(not math.isfinite(v) for v in out["f1"] + out["latency"]):
+        raise AssertionError("[serving] serve: a non-finite F1 or latency")
+    bounds = state["rounds"] + [end]
+    rounds = [(b - a) * 1e3 for a, b in zip(bounds, bounds[1:])]
+    return dict(out=out, split=split, rounds=rounds, launches=dict(total),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _serving_packets(streams, level=None):
+    """One 720p chunk of each stream through ``encode_hybrid`` at 6,000
+    kbps (the frames rendered on the card)."""
+    from repro_torch.core.hybrid_encoder import encode_hybrid
+    from repro_torch.sim.video_source import generate_chunk
+    out = []
+    for sc in streams:
+        raw, gtb, gtv = generate_chunk(sc, 0, T)
+        out.append((encode_hybrid(raw, 6000.0, TR1, TR2, level=level),
+                    gtb, gtv))
+    return out
+
+
+def _round(rt, packets, t: int = 0) -> list:
+    """One batch-submit round: every stream submitted, one flush, every
+    ticket polled."""
+    tks = [rt.submit_chunk(c, t, p) for c, (p, _, _) in enumerate(packets)]
+    rt.flush()
+    return [rt.poll(tk) for tk in tks]
+
+
+def _soak_split(rt_cls):
+    """Wrap the runtime's group dispatch and detector call with counters;
+    returns (the counter, the patches)."""
+    import collections
+    n = collections.Counter()
+    group, infer = rt_cls._dispatch_group, rt_cls._infer_batch_dev
+
+    def counted_group(self, shard, tickets):
+        n["groups"] += 1
+        n["rows"] += sum(len(tk.reqs) for tk in tickets)
+        return group(self, shard, tickets)
+
+    def counted_infer(self, *a, **k):
+        n["dispatches"] += 1
+        return infer(self, *a, **k)
+
+    return n, _patched((rt_cls, "_dispatch_group", counted_group),
+                       (rt_cls, "_infer_batch_dev", counted_infer))
+
+
+def phase_serving(params, det_cfg) -> dict:
+    """[serving]: (1) serve.main on nine 720p streams, three chunks, the
+    SAC controller, its 150-step quick-train; (2) the chaos soak at the
+    paper's load: loss-burst chunk-sequential and batch-submit, held equal
+    in every host-decided field, then shard-chaos on two logical shards;
+    (3) one batch-submit round with the ROI gate and the anchor search;
+    (4) the legacy decode of one 720p packet against the fused one; (5)
+    64x96 packets through the runtime on the card against the port's CPU
+    path.  Returns the launches of the runs."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.core import hybrid_decoder as HD
+    from repro_torch.core.roi import RoiConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving import faults as FL
+    from repro_torch.serving.runtime import EdgeRuntime
+    from repro_torch.serving.scheduler import ServingConfig
+    launches = collections.Counter()
+
+    # (1) the launcher
+    r = _serve_run()
+    launches.update(r["launches"])
+    out, split = r["out"], r["split"]
+    frames = BATCHED_STREAMS * T
+    print(f"[serving] serve: quick-train 150 steps "
+          f"{split.ms['quick_train'] + split.ms['render_train']:.1f} ms "
+          f"({split.ms['render_train']:.1f} of it rendering its chunks)")
+    steady = statistics.median(r["rounds"][1:])
+    print(f"[serving] serve: rounds of {BATCHED_STREAMS} streams x {T}x"
+          f"{H_HD}x{W_HD}: {', '.join(f'{v:.1f}' for v in r['rounds'])} ms;"
+          f" median of the later {steady:.1f} ms ({frames / steady * 1e3:.1f}"
+          f" frames/s against the {FLOOR_FPS:.0f} floor); serve's own wall "
+          f"{out['wall_s'] * 1e3:.1f} ms, {out['fps']:.1f} frames/s")
+    n = 3 * BATCHED_STREAMS
+    print("[serving] serve split a stream-chunk (ms, each call ending in a "
+          "device sync): " + ", ".join(
+              f"{k} {split.ms[k] / n:.2f}" for k in
+              ("render", "encode_hybrid", "submit_chunk", "flush", "poll",
+               "nms_f1")) + f"; observe_high {split.ms['observe_high'] / 3:.2f}"
+          " a round")
+    print(f"[serving] serve: launches a stream-chunk {SERVE_LAUNCHES} "
+          f"(all {n} checked); over the run {r['launches']}")
+    print(f"[serving] serve: mean F1 {statistics.mean(out['f1']):.4f}, mean "
+          f"latency {statistics.mean(out['latency']) * 1e3:.1f} ms, peak "
+          f"device memory {r['peak'] / 2**30:.2f} GiB")
+
+    # (2) the chaos soak
+    cfg = FL.SoakConfig(**SOAK)
+    reports = {}
+    for mode in ("sync", "batch_submit"):
+        counts, patch = _soak_split(EdgeRuntime)
+        build.reset_launches()
+        with patch:
+            reports[mode] = FL.run_soak(cfg, FL.preset_schedule(
+                "loss-burst", n_chunks=cfg.n_chunks,
+                n_streams=cfg.n_streams, seed=cfg.seed),
+                batch_submit=mode == "batch_submit")
+        launches.update(build.LAUNCHES)
+        rep = reports[mode]
+        if not rep["accounting_ok"] or rep["queue_leaks"]:
+            raise AssertionError(f"[serving] soak loss-burst {mode}: "
+                                 f"accounting {rep['accounting_ok']}, "
+                                 f"leaks {rep['queue_leaks']}")
+        print(f"[serving] soak loss-burst {mode}: {cfg.n_chunks} rounds in "
+              f"{rep['wall_s'] * 1e3:.1f} ms "
+              f"({rep['wall_s'] * 1e3 / cfg.n_chunks:.1f} ms a round, the "
+              f"encodes included), {counts['groups']} flush groups, "
+              f"{counts['dispatches']} detector dispatches, "
+              f"{counts['rows']} rows; delivered "
+              f"{rep['delivered_fps'].sum() / cfg.n_chunks:.1f} frames/s a "
+              f"round (simulated)")
+    a, b = reports["sync"], reports["batch_submit"]
+    for k in SOAK_FIELDS:
+        same = np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) \
+            else a[k] == b[k]
+        if not same:
+            raise AssertionError(f"[serving] soak loss-burst: {k} differs "
+                                 "between sync and batch_submit")
+    print(f"[serving] soak loss-burst: sync == batch_submit in "
+          f"{', '.join(SOAK_FIELDS)}")
+    # shard-chaos: chunk-sequential, where each stream's dispatch is timed
+    # on its own shard and the slow shard stands out; batch-submit, where
+    # the two shards' batches differ in rows, reported as it comes
+    chaos_cfg = FL.SoakConfig(**SOAK, n_shards=2)
+    for mode in ("sync", "batch_submit"):
+        counts, patch = _soak_split(EdgeRuntime)
+        build.reset_launches()
+        with patch:
+            rep = FL.run_soak(chaos_cfg, FL.preset_schedule(
+                "shard-chaos", n_chunks=cfg.n_chunks,
+                n_streams=cfg.n_streams, n_shards=2, seed=cfg.seed),
+                batch_submit=mode == "batch_submit")
+        launches.update(build.LAUNCHES)
+        acts = [x for _, x, _ in rep["fault_log"]]
+        if not rep["accounting_ok"] or rep["queue_leaks"] \
+                or rep["active_shards_final"] != [0, 1] \
+                or counts["dispatches"] != counts["groups"] \
+                or (mode == "sync" and acts != ["evict", "recover"]):
+            raise AssertionError(
+                f"[serving] soak shard-chaos {mode}: {rep['fault_log']}, "
+                f"final {rep['active_shards_final']}, accounting "
+                f"{rep['accounting_ok']}, {counts['dispatches']} dispatches "
+                f"for {counts['groups']} flush groups")
+        print(f"[serving] soak shard-chaos {mode} (2 logical shards): "
+              f"{rep['wall_s'] * 1e3 / cfg.n_chunks:.1f} ms a round, "
+              f"{counts['groups']} flush groups, {counts['dispatches']} "
+              f"detector dispatches (one a group), "
+              f"{rep['hedged_dispatches']} hedged; fault log "
+              f"{rep['fault_log'] or 'empty: no shard flagged'}")
+
+    # (3) one round with the ROI gate and the anchor search
+    packets = _serving_packets(_streams(BATCHED_STREAMS))
+    rt = EdgeRuntime(ServingConfig(n_streams=BATCHED_STREAMS,
+                                   roi=RoiConfig(**ROI), anchor_search=True),
+                     params, det_cfg)
+    _round(rt, packets)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = _round(rt, packets, 1)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    got = dict(build.LAUNCHES)
+    launches.update(got)
+    _expect_launches("[serving] roi+search round", ROI_SEARCH_LAUNCHES)
+    for boxes, scores, _ in res:
+        if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+            raise AssertionError("[serving] roi+search: non-finite result")
+    rt.close()
+    print(f"[serving] roi+search: one batch-submit round {dt:.1f} ms, "
+          f"launches {got}")
+
+    # (4) the legacy decode against the fused
+    pkt, gtb, gtv = packets[1]
+    build.reset_launches()
+    legacy = HD.decode_and_execute(pkt, params, det_cfg, gtb, gtv,
+                                   bw_kbps=6000.0)
+    _expect_launches("[serving] legacy decode_and_execute", LEGACY_LAUNCHES)
+    launches.update(build.LAUNCHES)
+    build.reset_launches()
+    fused = HD.decode_and_execute_fused(pkt, params, det_cfg, gtb, gtv,
+                                        bw_kbps=6000.0)
+    _expect_launches("[serving] legacy decode_and_execute_fused",
+                     LEGACY_LAUNCHES)
+    launches.update(build.LAUNCHES)
+    np.testing.assert_allclose(legacy.boxes, fused.boxes, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(legacy.scores, fused.scores, rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(legacy.f1, fused.f1)
+    np.testing.assert_allclose(legacy.latency, fused.latency, rtol=1e-5)
+    exact = np.array_equal(legacy.boxes, fused.boxes) \
+        and np.array_equal(legacy.scores, fused.scores)
+    print(f"[serving] legacy: one 720p packet (types "
+          f"{[int((pkt.types == k).sum()) for k in (1, 2, 3)]}), "
+          f"decode_and_execute vs decode_and_execute_fused: boxes and scores"
+          f" {'bit for bit' if exact else 'within 1e-2 / 1e-4'}, F1 equal "
+          f"({legacy.mean_f1:.4f}), latency {legacy.latency:.6f} vs "
+          f"{fused.latency:.6f} s (host f64 vs device f32)")
+    del packets, rt, res
+
+    # (5) 64x96 packets on the card against the port's CPU path
+    _serving_parity(params, det_cfg)
+    return dict(launches)
+
+
+def _serving_parity(params, det_cfg) -> None:
+    """64x96 packets encoded on the card and on the CPU (types, rungs,
+    anchor qualities and MVs equal), then through a CUDA and a CPU
+    runtime under a loss-burst schedule: types and stats exactly, boxes
+    and scores within the [parity] contract; submit/flush/poll on the card
+    against its process_chunk (types exactly, the rest within the
+    contract)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid_encoder import encode_hybrid
+    from repro_torch.serving import faults as FL
+    from repro_torch.serving.runtime import EdgeRuntime
+    from repro_torch.serving.scheduler import ServingConfig
+    from repro_torch.sim.video_source import StreamConfig, generate_chunk
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    sched = FL.preset_schedule("loss-burst", n_chunks=12, n_streams=3)
+    rts = {dev: EdgeRuntime(ServingConfig(n_streams=3), p, det_cfg,
+                            faults=sched, device=dev)
+           for dev, p in (("cuda", params), ("cpu", cpu_params))}
+    batched = EdgeRuntime(ServingConfig(n_streams=3), params, det_cfg)
+    oracle = EdgeRuntime(ServingConfig(n_streams=3), params, det_cfg)
+    n_equal = n = b_equal = 0
+    for t in range(4):
+        pk = {}
+        for c in range(3):
+            raw = generate_chunk(StreamConfig(height=64, width=96,
+                                              n_objects=3, seed=c), t * 4,
+                                 4, device="cpu")[0]
+            pk[c] = {dev: encode_hybrid(raw, 3000.0, 0.5, 0.02, device=dev)
+                     for dev in ("cuda", "cpu")}
+            g, h = pk[c]["cuda"], pk[c]["cpu"]
+            if not (np.array_equal(g.types, h.types)
+                    and (g.ladder_level, g.anchor_quality)
+                    == (h.ladder_level, h.anchor_quality)
+                    and torch.equal(g.video.mv.cpu(), h.video.mv)):
+                raise AssertionError(f"[serving] parity encode {c} {t}")
+            np.testing.assert_allclose(g.total_bits, h.total_bits,
+                                       rtol=1e-4)
+        for c in range(3):
+            outs = {dev: rt.process_chunk(c, t, pk[c][dev])
+                    for dev, rt in rts.items()}
+            (gb, gs, gt), (hb, hs, ht) = outs["cuda"], outs["cpu"]
+            np.testing.assert_array_equal(gt, ht)
+            np.testing.assert_allclose(gs, hs, rtol=0, atol=1e-4)
+            np.testing.assert_allclose(gb, hb, rtol=0, atol=1e-2)
+            n_equal += np.array_equal(gb, hb) and np.array_equal(gs, hs)
+            n += 1
+        got = _round(batched, [(pk[c]["cuda"], None, None)
+                               for c in range(3)], t)
+        for c in range(3):
+            (gb, gs, gt), (wb, ws, wt) = got[c], oracle.process_chunk(
+                c, t, pk[c]["cuda"])
+            np.testing.assert_array_equal(gt, wt)
+            np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
+            np.testing.assert_allclose(gb, wb, rtol=0, atol=1e-2)
+            b_equal += np.array_equal(gb, wb) and np.array_equal(gs, ws)
+    stats = {dev: {c: dataclasses.asdict(s) for c, s in rt.stats.items()}
+             for dev, rt in rts.items()}
+    if stats["cuda"] != stats["cpu"]:
+        raise AssertionError("[serving] parity: stream stats differ")
+    print(f"[serving] parity: 64x96, 3 streams x 4 chunks under loss-burst:"
+          f" encodes equal in types, rungs, qualities and MVs; {n_equal} of "
+          f"{n} chunks bit for bit the CPU runtime's, the rest within the "
+          f"[parity] contract; stats equal; submit/flush/poll against "
+          f"process_chunk on the card: {b_equal} of {n} bit for bit, the "
+          "rest within the contract (a batch of 3 streams' rows against one "
+          "stream's)")
+
+
+def phase_profile_serving(params, det_cfg) -> None:
+    """``--profile serving``: one batch-submit round of the nine streams
+    (packets encoded beforehand) under torch.profiler, after two
+    unprofiled rounds: busy share, device ops, host operators, and the
+    device-to-host copies and bytes."""
+    import pathlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.runtime import EdgeRuntime
+    from repro_torch.serving.scheduler import ServingConfig
+    packets = _serving_packets(_streams(BATCHED_STREAMS))
+    rt = EdgeRuntime(ServingConfig(n_streams=BATCHED_STREAMS), params,
+                     det_cfg)
+    warm = []
+    for t in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _round(rt, packets, t)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    print(f"[profile] serving: alone in a process, unprofiled rounds "
+          f"{', '.join(f'{v:.1f}' for v in warm)} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = _round(rt, packets, 2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sum(int(((p.types == 1) | (p.types == 2)).sum())
+               for p, _, _ in packets)
+    _print_profile(f"serving: one batch-submit round {BATCHED_STREAMS}x{T}x"
+                   f"{H_HD}x{W_HD} ({rows} detector rows)", prof, wall)
+    out_dir = pathlib.Path(ROOT) / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n_bytes, n = _d2h_bytes(prof, out_dir / "serving_round.json")
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaEventSynchronize"))
+    result = sum(b.nbytes + s.nbytes for b, s, _ in res)
+    print(f"[profile] serving: device-to-host copies in the round: {n} for "
+          f"{len(res)} polls, " + (
+              "bytes not measured (the trace gives none)" if n_bytes is None
+              else f"{n_bytes} bytes ({n_bytes / 2**20:.2f} MiB; the results"
+              f" are {result / 2**20:.2f} MiB)")
+          + f"; {syncs} synchronising calls on the host")
+    rt.close()
+
+
 def profile_in_child(tag: str) -> None:
     """``phase_profile`` of one path in a fresh process; its lines are
     printed here."""
@@ -2358,6 +2846,8 @@ def main(argv) -> int:
             phase_profile_batched(params, det_cfg)
         elif argv[1] == "control":
             phase_profile_control(params, det_cfg)
+        elif argv[1] == "serving":
+            phase_profile_serving(params, det_cfg)
         else:
             phase_profile(argv[1], params, paths[argv[1]][0])
         return 0
@@ -2403,6 +2893,8 @@ def main(argv) -> int:
     profile_in_child("batched")
     launches.update(phase_control(params, det_cfg))
     profile_in_child("control")
+    launches["serving"] = phase_serving(params, det_cfg)
+    profile_in_child("serving")
     del params
     launches["lm"] = phase_lm()
     profile_in_child("lm")

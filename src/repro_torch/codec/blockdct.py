@@ -69,7 +69,7 @@ def quant_table(quality, device=None):
     8) tables for a tensor (or sequence) of them, computed on the CPU."""
     scale = quality_scale(torch.as_tensor(quality, dtype=f32).cpu())
     qtab = torch.from_numpy(JPEG_LUMA_Q50) * scale[..., None, None]
-    return qtab.clamp(min=1.0).to(device)
+    return qtab.clamp(min=1.0).to(device, non_blocking=True)
 
 
 def dct2(blocks):

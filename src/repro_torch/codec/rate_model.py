@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import host_to_device
+
 
 @dataclasses.dataclass(frozen=True)
 class QualityLevel:
@@ -75,8 +77,8 @@ def upscale_nearest(frames, H: int, W: int, src_hw=None):
     leading stream axis (a mixed-ladder padded canvas)."""
     dev = frames.device
     hc, wc = frames.shape[-2:]
-    ext = torch.as_tensor((hc, wc) if src_hw is None else src_hw,
-                          device=dev).long().reshape(-1, 2)
+    ext = host_to_device((hc, wc) if src_hw is None else src_hw,
+                         dev).long().reshape(-1, 2)
     S = ext.shape[0]
     h, w = ext[:, 0:1], ext[:, 1:2]                       # (S, 1)
     yi = torch.minimum(torch.arange(H, device=dev)[None] * h // H, h - 1)

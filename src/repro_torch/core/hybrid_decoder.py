@@ -15,11 +15,19 @@ over all S streams' frames, and the reuse loop is T steps for any S.
 ``lr_extent`` ((S, 2) valid LR extents) decodes a mixed-ladder padded
 encode: the index maps then read only each stream's valid region, so a
 lane equals the decode of its unpadded encode.
+
+``decode_and_execute`` is the reference's legacy host-orchestrated path
+for one :class:`~repro_torch.core.hybrid_encoder.HybridPacket` (the
+nearest-anchor loop and the latency model on the host), kept as the
+oracle of the fused path; ``decode_and_execute_fused`` is
+``decode_execute_chunk`` behind the same packet-in, :class:`ChunkResult`
+out contract.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.codec.motion import accumulate_mv
@@ -29,7 +37,7 @@ from repro_torch.core.quality_transfer import (residual_to_pixels,
 from repro_torch.core.reuse import reuse_chunk
 from repro_torch.core.roi import roi_detect
 from repro_torch.codec.video_codec import EncodedChunk
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models import detection as D
 
 f32 = torch.float32
@@ -52,6 +60,19 @@ def pipeline_cost(n1, n2, n3, costs: PipelineCosts = PipelineCosts()):
     return (n1 * (costs.infer + costs.decode_hd)
             + n2 * (costs.infer + costs.transfer + costs.decode_video)
             + n3 * costs.reuse)
+
+
+@dataclasses.dataclass
+class ChunkResult:
+    boxes: np.ndarray           # (T, N, 4)
+    scores: np.ndarray          # (T, N)
+    types: np.ndarray           # (T,)
+    f1: np.ndarray              # (T,) accuracy vs GT
+    mean_f1: float
+    latency: float              # end-to-end chunk latency (s)
+    t_trans: float
+    t_queue: float
+    t_comp: float
 
 
 def anchor_index(types):
@@ -92,9 +113,9 @@ def _upscale_mvs(mv, hw, lr_hw=None):
     nby_p, nbx_p = mv.shape[-3:-1]
     dev = mv.device
     if lr_hw is None:
-        n_lr = torch.tensor([[nby_p, nbx_p]], device=dev)
+        n_lr = host_to_device([[nby_p, nbx_p]], dev)
     else:
-        n_lr = torch.as_tensor(lr_hw, device=dev).long().reshape(-1, 2) // 16
+        n_lr = host_to_device(lr_hw, dev).long().reshape(-1, 2) // 16
     S = n_lr.shape[0]
     ny, nx = n_lr[:, 0:1], n_lr[:, 1:2]                   # (S, 1)
     yi = torch.minimum(torch.arange(nby, device=dev)[None] * ny // nby,
@@ -105,7 +126,7 @@ def _upscale_mvs(mv, hw, lr_hw=None):
     m = mv.reshape(S, -1, nby_p * nbx_p, 2)
     idx = (yi[:, :, None] * nbx_p + xi[:, None, :]).reshape(S, 1, -1, 1)
     mvu = m.gather(2, idx.expand(S, m.shape[1], -1, 2)).to(f32)
-    scale = torch.tensor([H, W], dtype=f32, device=dev) \
+    scale = host_to_device([H, W], dev, f32) \
         / (n_lr.to(f32) * 16.0)                           # (S, 2)
     scaled = mvu * scale[:, None, None, :]
     return torch.round(scaled).to(torch.int32).reshape(*lead, nby, nbx, 2)
@@ -222,3 +243,77 @@ def decode_execute_batched(enc: EncodedChunk, types, anchor_hd, gt_boxes,
         {k: torch.as_tensor(v, device=dev)
          for k, v in detector_params.items()},
         det_cfg, bw_kbps, queue_delay, total_bits, costs, roi=roi)
+
+
+def decode_and_execute(packet, detector_params, det_cfg, gt_boxes, gt_valid,
+                       *, bw_kbps: float, queue_delay: float = 0.0,
+                       costs: PipelineCosts = PipelineCosts(),
+                       fps: float = 30.0, device=None) -> ChunkResult:
+    """The 3 pipelines for one chunk of one stream, orchestrated on the
+    host: the nearest-anchor index from a loop over the packet's host
+    types, the latency model in host floats.  The residuals take one
+    blockdct inverse launch and the quality transfer one qtransfer launch
+    for the chunk.  Runs on CUDA unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    enc = EncodedChunk(**{f.name: torch.as_tensor(getattr(packet.video,
+                                                          f.name)).to(dev)
+                          for f in dataclasses.fields(packet.video)})
+    host_types = np.asarray(packet.types)
+    T = host_types.shape[0]
+    anchor_hd = torch.as_tensor(packet.anchor_hd, dtype=f32).to(dev)
+    H, W = anchor_hd.shape[1:]
+    types = host_to_device(host_types, dev, torch.int32)
+    params = {k: torch.as_tensor(v).to(dev)
+              for k, v in detector_params.items()}
+
+    lr_up = upscale_nearest(enc.recon, H, W)
+    anchor_idx = np.zeros(T, np.int64)
+    last = 0
+    for i in range(T):
+        if host_types[i] == 1:
+            last = i
+        anchor_idx[i] = last
+    aidx = host_to_device(anchor_idx, dev)
+    mvs_hd = _upscale_mvs(enc.mv, (H, W))
+    h, w = enc.recon.shape[-2:]
+    residual_up = upscale_nearest(
+        residual_to_pixels(enc.residual_q, enc.qtab, h, w), H, W)
+    frames_exec = torch.where((types == 1)[:, None, None], anchor_hd, lr_up)
+    qt = _transfer(anchor_hd[aidx][None], aidx[None], mvs_hd[None],
+                   residual_up[None], frames_exec[None], types[None])[0]
+    boxes_i, scores_i = _detect(params, det_cfg, qt)
+    boxes, scores = reuse_chunk(types, mvs_hd, boxes_i, scores_i)
+    f1 = D.f1_score(boxes, scores,
+                    torch.as_tensor(gt_boxes, dtype=f32).to(dev),
+                    torch.as_tensor(gt_valid).to(dev)).cpu().numpy()
+
+    n1, n2, n3 = (int((host_types == k).sum()) for k in (1, 2, 3))
+    t_comp = pipeline_cost(n1, n2, n3, costs)
+    t_trans = packet.total_bits / max(bw_kbps * 1000.0, 1e-6)
+    latency = t_trans + queue_delay + t_comp
+    return ChunkResult(boxes=boxes.cpu().numpy(),
+                       scores=scores.cpu().numpy(), types=packet.types,
+                       f1=f1, mean_f1=float(f1.mean(dtype=np.float32)),
+                       latency=float(latency), t_trans=float(t_trans),
+                       t_queue=float(queue_delay), t_comp=float(t_comp))
+
+
+def decode_and_execute_fused(packet, detector_params, det_cfg, gt_boxes,
+                             gt_valid, *, bw_kbps: float,
+                             queue_delay: float = 0.0,
+                             costs: PipelineCosts = PipelineCosts(),
+                             device=None) -> ChunkResult:
+    """``decode_execute_chunk`` with the packet-in, :class:`ChunkResult`
+    out contract of :func:`decode_and_execute`."""
+    out = decode_execute_chunk(
+        packet.video, packet.types, packet.anchor_hd, gt_boxes, gt_valid,
+        detector_params, det_cfg, bw_kbps=bw_kbps, queue_delay=queue_delay,
+        total_bits=packet.total_bits, costs=costs, device=device)
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    return ChunkResult(boxes=host["boxes"], scores=host["scores"],
+                       types=packet.types, f1=host["f1"],
+                       mean_f1=float(host["mean_f1"]),
+                       latency=float(host["latency"]),
+                       t_trans=float(host["t_trans"]),
+                       t_queue=float(host["t_queue"]),
+                       t_comp=float(host["t_comp"]))

@@ -8,7 +8,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.codec import blockdct as B
+from repro_torch.codec.motion import accumulate_mv
 from repro_torch.kernels.qtransfer.ops import qtransfer
+
+f32 = torch.float32
 
 
 def residual_to_pixels(residual_q, qtab, H: int, W: int):
@@ -30,3 +33,34 @@ def transfer_frame(anchor_hd, mv_acc, residual_px):
     return qtransfer(anchor_hd.contiguous(),
                      mv_acc.to(torch.int32).contiguous(),
                      residual_px.contiguous(), edge="pixel")
+
+
+def transfer_chunk(frames_lr_up, anchor_hd, anchor_idx, mvs, residual_q,
+                   qtab, types):
+    """Quality transfer of every type-2 frame of a chunk.
+
+    frames_lr_up: (T, H, W) decoder-upscaled LR frames (the fallback
+    content); anchor_hd: (T, H, W) each frame's nearest-anchor HD plane;
+    anchor_idx: (T,) that anchor's index; mvs: (T, nby, nbx, 2)
+    frame-to-previous MVs; residual_q: (T, nblocks, 8, 8) residual
+    coefficients of the (H, W) grid; qtab: (8, 8); types: (T,).  The
+    residuals take one blockdct inverse launch and the transfer one
+    qtransfer launch for all T frames.  Returns (T, H, W): the transferred
+    frame where types == 2, else ``frames_lr_up``'s."""
+    T, H, W = frames_lr_up.shape
+    cum = accumulate_mv(mvs)
+    mv_rel = cum - cum[torch.as_tensor(anchor_idx,
+                                       device=cum.device).long()]
+    enhanced = transfer_frame(anchor_hd, mv_rel,
+                              residual_to_pixels(residual_q, qtab, H, W))
+    types = torch.as_tensor(types, device=frames_lr_up.device)
+    return torch.where((types == 2)[:, None, None], enhanced, frames_lr_up)
+
+
+def transfer_gain_psnr(raw, lr_up, enhanced):
+    """PSNR gain of the transfer over the plain upscale (paper Fig. 8a),
+    in dB."""
+    def p(a, b):
+        mse = (a.to(f32) - b.to(f32)).square().mean()
+        return 10.0 * torch.log10(255.0 ** 2 / mse.clamp(min=1e-9))
+    return p(raw, enhanced) - p(raw, lr_up)

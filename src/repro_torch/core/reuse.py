@@ -38,15 +38,20 @@ def shift_boxes(boxes, scores, mv):
     return boxes - torch.stack([dy, dx, zero, zero], dim=-1), scores
 
 
-def reuse_chunk(types, mvs, infer_boxes, infer_scores):
+def reuse_chunk(types, mvs, infer_boxes, infer_scores, init_boxes=None,
+                init_scores=None):
     """Propagate detections through the type-3 frames of a chunk.
 
     types: (..., T); mvs: (..., T, nby, nbx, 2) frame-to-previous MVs;
     infer_boxes/scores: (..., T, N, 4)/(..., T, N), valid at type-1/2
-    frames.  Returns per-frame (boxes, scores).
+    frames.  ``init_boxes``/``init_scores`` ((..., N, 4)/(..., N)) seed
+    the carry with the previous chunk's last detections, so type-3 frames
+    at a chunk boundary keep tracking across chunks (default: frame 0's
+    own).  Returns per-frame (boxes, scores).
     """
     T = types.shape[-1]
-    boxes, scores = infer_boxes[..., 0, :, :], infer_scores[..., 0, :]
+    boxes = infer_boxes[..., 0, :, :] if init_boxes is None else init_boxes
+    scores = infer_scores[..., 0, :] if init_scores is None else init_scores
     out_boxes, out_scores = [], []
     for i in range(T):
         fresh = (types[..., i] != 3)[..., None]

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import host_to_device
 from repro_torch.kernels.roi_gather.ops import roi_gather
 from repro_torch.models import detection as D
 
@@ -118,8 +119,8 @@ def region_scores(mv, residual_q, lr_hw, hd_hw, roi: RoiConfig,
     nry, nrx = region_grid((H, W), roi)
     s = roi.region_px // 8                  # samples per region side
     dev = mv.device
-    ext = torch.as_tensor((h, w) if lr_extent is None else lr_extent,
-                          device=dev).long().reshape(-1, 2)
+    ext = host_to_device((h, w) if lr_extent is None else lr_extent,
+                         dev).long().reshape(-1, 2)
     hv, wv = ext[:, 0:1], ext[:, 1:2]                      # (S, 1)
     S = ext.shape[0]
     lead = mv.shape[:-3]

@@ -31,3 +31,12 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def host_to_device(x, device, dtype=None) -> torch.Tensor:
+    """Host data (numpy, a Python sequence or a CPU tensor) as a tensor on
+    ``device``, the copy queued without waiting for the device: a
+    blocking host-to-device copy first waits for every operation queued
+    before it, which would serialise the host's control with the device's
+    work.  A tensor already on ``device`` is returned as it is."""
+    return torch.as_tensor(x, dtype=dtype).to(device, non_blocking=True)

@@ -1,5 +1,5 @@
-"""Anchor-free TinyDetector + box decoding + F1 metric (port of
-``repro.models.detection``: the inference half).
+"""Anchor-free TinyDetector, box decoding, its training loss, greedy NMS
+and the F1 metric (port of ``repro.models.detection``).
 
 Parameters are a plain dict of tensors in PyTorch's layout: ``conv{i}``
 (c, cin, 3, 3) OIHW with ``bias{i}`` (c,), ``head`` (5, cin, 1, 1) with
@@ -110,6 +110,54 @@ def decode_boxes(raw, cfg: TinyDetectorConfig):
     return boxes.reshape(B, -1, 4), obj.reshape(B, -1)
 
 
+def _cell_targets(boxes, valid, hc: int, wc: int, stride: int):
+    """Rasterise GT boxes onto the output grid: boxes (..., N, 4) cxcywh,
+    valid (..., N) -> (tgt (..., hc, wc, 4) the nearest valid box of each
+    cell centre, inside (..., hc, wc) whether the centre lies in it).  The
+    nearest box is the first on ties, as ``jnp.argmin``."""
+    dev = boxes.device
+    cy = ((torch.arange(hc, dtype=f32, device=dev) + 0.5) * stride)[:, None]
+    cx = ((torch.arange(wc, dtype=f32, device=dev) + 0.5) * stride)[None, :]
+    d2 = (boxes[..., :, None, None, 0] - cy).square() \
+        + (boxes[..., :, None, None, 1] - cx).square()     # (..., N, hc, wc)
+    d2 = torch.where(valid[..., :, None, None], d2, torch.inf)
+    nearest_d2, nearest = d2.min(dim=-3)                 # first on ties
+    idx = nearest.reshape(*nearest.shape[:-2], hc * wc, 1).expand(
+        *nearest.shape[:-2], hc * wc, 4)
+    tgt = boxes.gather(-2, idx).reshape(*nearest.shape, 4)
+    inside = ((cy - tgt[..., 0]).abs() <= tgt[..., 2] / 2) \
+        & ((cx - tgt[..., 1]).abs() <= tgt[..., 3] / 2) \
+        & torch.isfinite(nearest_d2)
+    return tgt, inside
+
+
+def loss_fn(params: dict, cfg: TinyDetectorConfig, frames, boxes, valid):
+    """frames (B, H, W); boxes (B, N, 4); valid (B, N).  Objectness
+    log-loss over every cell plus the box regression over the positive
+    cells; differentiable by autograd through the plain detector."""
+    raw = forward(params, cfg, frames)
+    B, hc, wc, _ = raw.shape
+    s = cfg.stride
+    dev = raw.device
+    tgt, pos = _cell_targets(boxes.to(f32), valid.bool(), hc, wc, s)
+    pos = pos.to(f32)
+    obj_logit = raw[..., 0]
+    obj_loss = (obj_logit.clamp(min=0) - obj_logit * pos
+                + torch.log1p(torch.exp(-obj_logit.abs()))).mean()
+    cyc = (torch.arange(hc, dtype=f32, device=dev)[None, :, None] + 0.5) * s
+    cxc = (torch.arange(wc, dtype=f32, device=dev)[None, None, :] + 0.5) * s
+    t_dy = (tgt[..., 0] - cyc) / s
+    t_dx = (tgt[..., 1] - cxc) / s
+    t_lh = torch.log((tgt[..., 2] / s).clamp(min=1e-3))
+    t_lw = torch.log((tgt[..., 3] / s).clamp(min=1e-3))
+    reg = (torch.tanh(raw[..., 1]) - t_dy.clamp(-1, 1)).square() \
+        + (torch.tanh(raw[..., 2]) - t_dx.clamp(-1, 1)).square() \
+        + (raw[..., 3].clamp(-3, 3) - t_lh.clamp(-3, 3)).square() \
+        + (raw[..., 4].clamp(-3, 3) - t_lw.clamp(-3, 3)).square()
+    reg_loss = (reg * pos).sum() / pos.sum().clamp(min=1.0)
+    return obj_loss + 0.5 * reg_loss
+
+
 def iou_cxcywh(a, b):
     """a: (..., 4), b: (..., 4) -> IoU."""
     ay0, ay1 = a[..., 0] - a[..., 2] / 2, a[..., 0] + a[..., 2] / 2
@@ -121,6 +169,27 @@ def iou_cxcywh(a, b):
     inter = iy * ix
     union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
     return inter / union.clamp(min=1e-9)
+
+
+def greedy_nms(boxes, scores, iou_thresh: float = 0.5, top_k: int = 32):
+    """NMS over the ``top_k`` highest-scoring cells of each frame: boxes
+    (..., N, 4), scores (..., N) -> (the top boxes (..., k, 4), their scores
+    zeroed where suppressed (..., k)), k = min(top_k, N).  The top cells
+    come from a stable descending sort, so ties keep the lower index
+    first, as ``lax.top_k``.
+
+    The reference's loop tests cell i with ``iou_cxcywh(bx[i][None],
+    bx)[0]``, its overlap with the top cell alone, and the top cell is
+    never suppressed: so a cell is suppressed exactly when it overlaps the
+    top cell by more than ``iou_thresh``, which is what this computes."""
+    k = min(top_k, scores.shape[-1])
+    sc, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    sc, idx = sc[..., :k], idx[..., :k]
+    bx = boxes.gather(-2, idx[..., None].expand(*idx.shape, 4))
+    overlap = iou_cxcywh(bx, bx[..., :1, :])             # (..., k)
+    rank = torch.arange(k, device=scores.device)
+    suppressed = (overlap > iou_thresh) & (rank > 0)
+    return bx, sc * torch.where(suppressed, 0.0, 1.0)
 
 
 def f1_score(pred_boxes, pred_scores, gt_boxes, gt_valid,

@@ -25,6 +25,7 @@ from repro_torch.core.roundtrip import (_downscale_pad, full_lr_canvas,
                                         roundtrip_padded_batched)
 from repro_torch.models import detection as D
 from repro_torch.models.weights import detector_params_from_jax
+from repro_torch.serving import faults as FLT
 from repro_torch.serving import scheduler as SCH
 from repro_torch.sim import env as E
 from repro_torch.sim import network as NW
@@ -224,6 +225,20 @@ def test_analytic_env_step_with_faults_matches_jax():
     jcfg, cfg = _configs(3)
     env, _ = _analytic_run(jcfg, cfg, faults=sched, jfaults=sched)
     assert env.t == 3
+
+
+def test_analytic_env_step_with_the_ports_fault_schedule_matches_jax():
+    """The port's own FaultSchedule drives the port's env, the
+    reference's schedule of the same events the reference env: a
+    collapse, a stream leaving, a stall and a chunk-loss window."""
+    events = [("bw_collapse", 1, 2, -1, 0.2), ("leave", 1, 3, 1, 1.0),
+              ("stall", 2, 3, 0, 1.0), ("chunk_loss", 0, 3, 2, 0.5)]
+    sched = FLT.FaultSchedule([FLT.FaultEvent(*e) for e in events], seed=3)
+    jsched = JFLT.FaultSchedule([JFLT.FaultEvent(*e) for e in events],
+                                seed=3)
+    jcfg, cfg = _configs(3)
+    env, _ = _analytic_run(jcfg, cfg, faults=sched, jfaults=jsched)
+    assert env.t == 3 and isinstance(env.faults, FLT.FaultSchedule)
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,8 @@
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
     python3 chip_smoke.py --profile main|roi|batched|control|serving|lm
                                                   (one profile)
+    python3 chip_smoke.py --sharded   (phases 1, 2, the worker-thread
+                  check and 6b' alone; on several cards, a mesh over them)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -53,6 +55,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the number of streams), frames/s and peak memory, its lanes held
    against the single-stream runs; one batched chunk profiled in a
    process of its own;
+6b'. sharded: the same nine streams, one chunk, split over meshes of 1,
+   3, 4 and (2, 2) shards (the card itself, then logical meshes that name
+   it several times; a mesh over the cards where there are several):
+   shard_roundtrip at rung 2, at the mixed rungs and with the budget
+   search, shard_encode, shard_streams on its output and (3 shards) the
+   padded canvas with the ROI gate, each bit for bit the batched form and
+   launching each kernel n_shards times as often; the rung-2 chunk timed
+   against roundtrip_batched in turns; EdgeRuntime in mesh mode on four
+   logical shards against logical shards without a mesh, then after a
+   failed group, ``remesh`` and a rebuilt runtime.  Before the paths,
+   every kernel form is called from a worker thread and held bit for bit
+   against the main thread's call (the launch runs under the tensors'
+   device);
 6c. control: the bi-level control plane (a SAC bandwidth controller, nine
    A2C agents) through ``BiLevelTrainer.create`` / ``run_chunk`` /
    ``run_chunk_loop`` / ``flush`` on the port's biswift_edge configuration
@@ -1919,6 +1934,348 @@ def phase_profile_batched(params, det_cfg) -> None:
                    prof, wall)
 
 
+# [sharded]: the nine streams split over a mesh of devices.  A logical mesh
+# names the card several times: each shard runs the batched body on its
+# slice of the streams, as it would on a card of its own
+SHARDED_TIMED = (1, 2, 1)       # chunk 0 is the warm-up (and the parity run)
+# the runtime's aggregate detector capacity: enough that no shard defers at
+# nine 720p streams on 2 or 4 shards (per-shard admission would otherwise
+# decide differently on the two meshes)
+SHARDED_RUNTIME_FPS = 2160.0
+
+
+def _sharded_meshes() -> list:
+    """(tag, mesh, rules): the card itself, logical meshes of 3, 4 and
+    (2, 2) shards on it, and a mesh over the cards when there are several."""
+    import torch
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import (SINGLE_POD_RULES,
+                                                  SINGLE_POD_RULES_DP)
+    card = torch.device("cuda", 0)
+    meshes = [
+        ("1", make_mesh((1,), ("data",)), SINGLE_POD_RULES),
+        ("3 logical", make_mesh((3,), ("data",), devices=[card] * 3),
+         SINGLE_POD_RULES),
+        ("4 logical", make_mesh((4,), ("data",), devices=[card] * 4),
+         SINGLE_POD_RULES),
+        ("2x2 logical", make_mesh((2, 2), ("data", "model"),
+                                  devices=[card] * 4), SINGLE_POD_RULES_DP)]
+    n = torch.cuda.device_count()
+    if n > 1:
+        k = min(n, 4)
+        meshes.append((f"{k} cards", make_mesh((k,), ("data",)),
+                       SINGLE_POD_RULES))
+    else:
+        print("[sharded] one CUDA device: no multi-card run was possible; "
+              "the meshes of 3, 4 and 2x2 shards name the card several "
+              "times (logical meshes)")
+    return meshes
+
+
+def _hold_bits(tag: str, out, ref) -> None:
+    """Every output of a sharded call bit for bit its batched form's."""
+    import dataclasses
+    import torch
+    if not isinstance(ref, dict):
+        out, ref = ({f.name: getattr(x, f.name)
+                     for f in dataclasses.fields(x)} for x in (out, ref))
+    if set(out) != set(ref):
+        raise AssertionError(f"[sharded] {tag}: keys differ")
+    for k in ref:
+        if out[k].shape != ref[k].shape or not torch.equal(out[k], ref[k]):
+            diff = (out[k].double() - ref[k].double()).abs().max().item() \
+                if out[k].shape == ref[k].shape else "shapes differ"
+            raise AssertionError(f"[sharded] {tag}: {k} differs from the "
+                                 f"batched form's ({diff})")
+
+
+def phase_sharded(params, det_cfg) -> dict:
+    """[sharded]: nine 720p streams of paper_stream_mix(9), one chunk, on
+    each mesh of ``_sharded_meshes``: shard_roundtrip at rung 2, at
+    BATCHED_LEVELS and with the budget search, shard_encode, shard_streams
+    on that encode's output, and (3 shards) the padded canvas with the
+    [roi] gate; each held bit for bit against the unsharded batched form
+    and launching each kernel n_shards times as often.  Then the rung-2
+    chunk timed against roundtrip_batched in turns, and the runtime's mesh
+    mode.  Returns the launches of the sharded calls."""
+    import collections
+    import dataclasses
+    import torch
+    from repro_torch.codec.video_codec import (VideoCodecConfig,
+                                               encode_chunk_batched)
+    from repro_torch.core import roundtrip as RT
+    from repro_torch.core.hybrid_decoder import decode_execute_batched
+    from repro_torch.core.roi import RoiConfig
+    from repro_torch.distributed.stream_sharding import (shard_encode,
+                                                         shard_roundtrip,
+                                                         shard_streams,
+                                                         stream_shard_count)
+    from repro_torch.kernels import build
+    mix, chunks = _batched_chunks()
+    S = len(mix)
+    main = RT.RoundtripConfig(level=LEVEL, det_cfg=det_cfg)
+    roi = dataclasses.replace(main, codec=VideoCodecConfig(**ROI_CODEC),
+                              roi=RoiConfig(**ROI))
+    search = dataclasses.replace(main, anchor_search=True)
+    kw = dict(tr1=TR1, tr2=TR2, queue_delay=0.0)
+    raw, gtb, gtv = chunks[0]
+    canvas = RT.full_lr_canvas(H_HD, W_HD)
+    lr = RT._downscale(raw, LEVEL)
+
+    def counted(fn):
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(build.LAUNCHES)
+
+    # the unsharded batched forms on chunk 0, and their launches
+    base = {"roundtrip": counted(lambda: RT.roundtrip_batched(
+        raw, gtb, gtv, params, cfg=main, bw_kbps=6000.0, **kw))}
+    bw = _batched_bandwidths(raw, base["roundtrip"][0])
+    types = base["roundtrip"][0]["types"]
+    anchors = torch.where((types == 1)[..., None, None], raw, 0.0)
+    total_bits = base["roundtrip"][0]["total_bits"]
+    lr_pad = RT._downscale_pad(raw, BATCHED_LEVELS, canvas)
+    ext, qual = RT.ladder_batch_arrays(BATCHED_LEVELS, H_HD, W_HD)
+    base["ladder"] = counted(lambda: RT.roundtrip_ladder_batched(
+        raw, gtb, gtv, params, levels=BATCHED_LEVELS, cfg=main,
+        bw_kbps=6000.0, **kw))
+    base["search"] = counted(lambda: RT.roundtrip_batched(
+        raw, gtb, gtv, params, cfg=search, bw_kbps=bw, **kw))
+    base["encode"] = counted(lambda: encode_chunk_batched(
+        lr, main.codec_for()))
+    exe = dict(bw_kbps=6000.0, queue_delay=0.0, total_bits=total_bits)
+    base["streams"] = counted(lambda: decode_execute_batched(
+        base["encode"][0], types, anchors, gtb, gtv, params, det_cfg, **exe))
+    base["padded_roi"] = counted(lambda: RT.roundtrip_padded_batched(
+        raw, lr_pad, ext, qual, gtb, gtv, params, cfg=roi, bw_kbps=6000.0,
+        **kw))
+    print(f"[sharded] batched forms' launches a chunk of {S} streams: "
+          + "; ".join(f"{f} {sum(n.values())}" for f, (_, n) in base.items()))
+
+    total = collections.Counter()
+    for tag, mesh, rules in _sharded_meshes():
+        n = stream_shard_count(mesh, rules)
+        enc_out = {}
+        forms = {
+            "roundtrip": lambda: shard_roundtrip(mesh, rules, cfg=main)(
+                raw, gtb, gtv, params, bw_kbps=6000.0, **kw),
+            "ladder": lambda: shard_roundtrip(mesh, rules, cfg=main)(
+                raw, gtb, gtv, params, bw_kbps=6000.0,
+                levels=BATCHED_LEVELS, **kw),
+            "search": lambda: shard_roundtrip(mesh, rules, cfg=search)(
+                raw, gtb, gtv, params, bw_kbps=bw, **kw),
+            "encode": lambda: enc_out.setdefault("enc", shard_encode(
+                mesh, rules, cfg=main.codec_for())(lr)),
+            "streams": lambda: shard_streams(mesh, rules, det_cfg=det_cfg)(
+                enc_out["enc"], types, anchors, gtb, gtv, params, **exe)}
+        if tag.startswith("3"):
+            forms["padded_roi"] = lambda: shard_roundtrip(
+                mesh, rules, cfg=roi)(raw, gtb, gtv, params, bw_kbps=6000.0,
+                                      levels=BATCHED_LEVELS, canvas=canvas,
+                                      **kw)
+        per_form = {}
+        for form, fn in forms.items():
+            out, got = counted(fn)
+            _hold_bits(f"mesh {tag} {form}", out, base[form][0])
+            want = {k: n * v for k, v in base[form][1].items()}
+            if got != want:
+                raise AssertionError(f"[sharded] mesh {tag} {form}: launches "
+                                     f"{got}, expected {n} x the batched "
+                                     f"form's {base[form][1]}")
+            total.update(got)
+            per_form[form] = sum(got.values())
+        print(f"[sharded] mesh {tag} ({n} shards over "
+              f"{len(mesh.distinct_devices())} device(s)): "
+              f"{', '.join(forms)} bit for bit the batched forms; launches "
+              f"a chunk {per_form} = {n} x the batched forms'")
+
+        # rung 2, the batched form and the sharded one in turns
+        run = shard_roundtrip(mesh, rules, cfg=main)
+        sides = {
+            "batched": lambda r, b, v: RT.roundtrip_batched(
+                r, b, v, params, cfg=main, bw_kbps=6000.0, **kw),
+            "sharded": lambda r, b, v: run(r, b, v, params, bw_kbps=6000.0,
+                                           **kw)}
+        if tag == "1":
+            # the sharded body is the masked mixed-ladder one: unsharded,
+            # at one rung, it shows what the masks cost
+            sides["ladder body"] = lambda r, b, v: \
+                RT.roundtrip_ladder_batched(r, b, v, params,
+                                            levels=(LEVEL,) * S, cfg=main,
+                                            bw_kbps=6000.0, **kw)
+        ms = {side: [] for side in sides}
+        peak = dict.fromkeys(sides, 0)
+        for c in SHARDED_TIMED:
+            for side, fn in sides.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                fn(*chunks[c])
+                torch.cuda.synchronize()
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+                peak[side] = max(peak[side],
+                                 torch.cuda.max_memory_allocated())
+                if side == "sharded":
+                    total.update(build.LAUNCHES)
+        print(f"[sharded] mesh {tag} rung 2, in turns: " + "; ".join(
+            f"{side} median {statistics.median(v):.1f} ms a chunk "
+            f"({', '.join(f'{x:.1f}' for x in v)}), "
+            f"{S * T / statistics.median(v) * 1e3:.1f} frames/s, peak "
+            f"{peak[side] / 2**30:.2f} GiB" for side, v in ms.items()))
+    _sharded_runtime(params, det_cfg)
+    return dict(total)
+
+
+def _sharded_runtime(params, det_cfg) -> None:
+    """EdgeRuntime in mesh mode on four logical shards serves nine 720p
+    streams for three batch-submit rounds, equal in detections and stats
+    to the runtime with ServingConfig(n_shards=4) and no mesh; then shard
+    3's group fails, ``remesh`` rebuilds a mesh of the survivors, and a
+    runtime on it serves the same streams again: every stream served, the
+    detections bit for bit the no-fault ones."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.hybrid_encoder import encode_hybrid
+    from repro_torch.distributed.sharding import SINGLE_POD_RULES
+    from repro_torch.serving.elastic import ElasticPool, remesh
+    from repro_torch.serving.runtime import EdgeRuntime
+    from repro_torch.serving.scheduler import ServingConfig
+    from repro_torch.sim.video_source import generate_chunk
+    card = torch.device("cuda", 0)
+    mix = _streams(BATCHED_STREAMS)
+    rounds = [[(encode_hybrid(generate_chunk(sc, t * T, T)[0], 6000.0, TR1,
+                              TR2), None, None) for sc in mix]
+              for t in range(3)]
+    cfg = ServingConfig(n_streams=len(mix),
+                        gpu_capacity_fps=SHARDED_RUNTIME_FPS)
+
+    def serve(rt):
+        polls, ms = [], []
+        with rt:
+            for t, packets in enumerate(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                polls.append(_round(rt, packets, t))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        stats = {c: s.as_dict() for c, s in rt.stats.items()}
+        for c, s in rt.stats.items():
+            if s.frames_in != s.frames_inferred + s.frames_reused \
+                    + s.frames_skipped:
+                raise AssertionError(f"[sharded] runtime stream {c}: frames "
+                                     f"unaccounted {s.as_dict()}")
+        if rt.deferred:
+            raise AssertionError(f"[sharded] runtime deferred {rt.deferred}")
+        return polls, stats, ms
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(x, y) for pa, pb in zip(a, b)
+                   for ta, tb in zip(pa, pb) for x, y in zip(ta, tb))
+
+    pool = ElasticPool(4)
+    mesh4 = remesh(pool, devices=[card] * 4)
+    meshed = serve(EdgeRuntime(cfg, params, det_cfg, mesh=mesh4,
+                               rules=SINGLE_POD_RULES))
+    logical = serve(EdgeRuntime(dataclasses.replace(cfg, n_shards=4),
+                                params, det_cfg))
+    if not same(meshed[0], logical[0]) or meshed[1] != logical[1]:
+        raise AssertionError("[sharded] runtime: mesh mode differs from "
+                             "the logical shards")
+    pool.fail(3)
+    mesh2 = remesh(pool, devices=[card] * 4)
+    rebuilt = serve(EdgeRuntime(cfg, params, det_cfg, mesh=mesh2,
+                                rules=SINGLE_POD_RULES))
+    if not same(rebuilt[0], meshed[0]):
+        raise AssertionError("[sharded] runtime after remesh: detections "
+                             "differ from the no-fault ones")
+    runs = [("mesh mode, 4 logical shards", meshed),
+            ("logical shards, no mesh", logical),
+            (f"remeshed on {mesh2.size} shards", rebuilt)]
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        # the same on a mesh over the cards, a detector on each card
+        k = min(n_dev, 4)
+        cards = remesh(ElasticPool(k), devices=[torch.device("cuda", i)
+                                                for i in range(k)])
+        on_cards = serve(EdgeRuntime(cfg, params, det_cfg, mesh=cards,
+                                     rules=SINGLE_POD_RULES))
+        if not same(on_cards[0], meshed[0]):
+            raise AssertionError("[sharded] runtime on the cards differs "
+                                 "from the logical mesh")
+        runs.append((f"mesh over {cards.size} cards", on_cards))
+    frames = len(mix) * T
+    for tag, (_, _, ms) in runs:
+        print(f"[sharded] runtime {tag}: rounds "
+              f"{', '.join(f'{v:.1f}' for v in ms)} ms "
+              f"({frames / statistics.median(ms) * 1e3:.1f} frames/s at the "
+              f"median)")
+    print(f"[sharded] runtime: mesh mode == logical shards in detections and "
+          f"stats over 3 rounds of {len(mix)} streams; shard 3 failed, "
+          f"remesh -> {dict(mesh2.shape)}, every stream served, detections "
+          f"bit for bit the no-fault ones")
+
+
+def check_threaded_launch() -> None:
+    """Each kernel form of the round trip and the LM, called from a worker
+    thread (whose current CUDA device is the default one) on tensors of
+    the last card, bit for bit the same call from the main thread: the
+    launch runs under the tensors' device, whatever the thread's."""
+    import concurrent.futures
+    import torch
+    from repro_torch.codec import blockdct as B
+    from repro_torch.kernels.blockdct.ops import (forward_quant_raster,
+                                                  inverse_raster)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.motion_sad.ops import motion_sad
+    from repro_torch.kernels.qtransfer.ops import qtransfer
+    from repro_torch.kernels.roi_gather.ops import roi_gather
+    from repro_torch.kernels.seq_sum.ops import seq_sum
+    n_dev = torch.cuda.device_count()
+    dev = torch.device("cuda", n_dev - 1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.rand((3, 64, 96), generator=g, device=dev) * 255
+    dmat, qtab = B.dct_matrix(8, dev), B.quant_table(50.0, dev)
+    q, _ = forward_quant_raster(frames, dmat, qtab)
+    mv = torch.randint(-8, 9, (3, 4, 6, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+    planes = torch.rand((3, 112, 144), generator=g, device=dev)
+    ry = torch.randint(0, 2, (3, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+    qkv = [torch.randn((1, 128, 4, 64), generator=g, device=dev)
+           .to(torch.bfloat16) for _ in range(3)]
+    calls = {
+        "motion_sad": lambda: motion_sad(frames[1:], frames[:-1], 8),
+        "motion_sad_diamond_bf16": lambda: motion_sad(
+            frames[1:], frames[:-1], 8, dtype=torch.bfloat16,
+            search="diamond"),
+        "blockdct_forward": lambda: forward_quant_raster(frames, dmat, qtab),
+        "blockdct_inverse": lambda: inverse_raster(q, dmat, qtab, 64, 96),
+        "qtransfer": lambda: qtransfer(frames, mv, frames),
+        "roi_gather": lambda: roi_gather(planes, ry, ry, region_px=32,
+                                         halo=8),
+        "seq_sum": lambda: seq_sum(frames),
+        "flash_attention": lambda: flash_attention(*qkv, causal=True)}
+    mine = {k: f() for k, f in calls.items()}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        current = pool.submit(torch.cuda.current_device).result()
+        theirs = {k: pool.submit(f).result() for k, f in calls.items()}
+    torch.cuda.synchronize(dev)
+    for k in calls:
+        a = mine[k] if isinstance(mine[k], tuple) else (mine[k],)
+        b = theirs[k] if isinstance(theirs[k], tuple) else (theirs[k],)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"[threads] {k}: the worker thread's call "
+                                 "differs from the main thread's")
+    print(f"[threads] {len(calls)} kernel forms called from a worker thread "
+          f"(current device cuda:{current}) on tensors of {dev}: bit for bit "
+          f"the main thread's calls; "
+          + ("the cross-card case (tensors on another card than the "
+             "thread's current device) stays unverified on this one-card "
+             "machine" if n_dev == 1 else "across cards"))
+
+
 # [control]: the bi-level control plane (SAC controller, nine A2C agents)
 # choosing the nine 720p streams' bandwidths and thresholds chunk by chunk,
 # through BiLevelTrainer.create / run_chunk / run_chunk_loop / flush
@@ -2839,6 +3196,13 @@ def main(argv) -> int:
     det_cfg = TinyDetectorConfig()
     params = init(torch.Generator().manual_seed(1), det_cfg)
     paths = path_configs(det_cfg)
+    if argv[:1] == ["--sharded"]:
+        # stream sharding alone, e.g. on a machine with several cards
+        phase_card()
+        phase_build()
+        check_threaded_launch()
+        phase_sharded(params, det_cfg)
+        return 0
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
             phase_profile_lm()
@@ -2884,6 +3248,8 @@ def main(argv) -> int:
               f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){device}{host}"
               f"{turns}")
 
+    check_threaded_launch()
+
     launches = run_paths(params, paths)
     for tag in paths:
         profile_in_child(tag)
@@ -2891,6 +3257,7 @@ def main(argv) -> int:
     launches["parity"] = phase_small_parity(params, det_cfg)
     launches.update(phase_batched(params, det_cfg))
     profile_in_child("batched")
+    launches["sharded"] = phase_sharded(params, det_cfg)
     launches.update(phase_control(params, det_cfg))
     profile_in_child("control")
     launches["serving"] = phase_serving(params, det_cfg)
@@ -2909,6 +3276,7 @@ def main(argv) -> int:
         k["path"] = next((p for p, n in launches.items()
                           if n.get(k["name"])), None)
         k["launches"] = launches[k["path"]][k["name"]] if k["path"] else 0
+        k["sharded_launches"] = launches["sharded"].get(k["name"], 0)
         if "form_path" in k:
             k["form_launches"] = launches[k["form_path"]][k["name"]] \
                 if k["form_path"] else 0

@@ -1,0 +1,100 @@
+"""A mesh of devices in one process: the port's stand-in for
+``jax.sharding.Mesh``, ``NamedSharding`` and ``jax.make_mesh``.
+
+One process owns every device of the mesh, as under JAX's single
+controller: stream-sharded work copies each shard's slice of the stream
+axis to its device and runs the body there
+(:mod:`repro_torch.distributed.shard_map_compat`).  A mesh may name the
+same device more than once (a logical mesh): the CPU tests run 2 and 4
+shards that way, and a one-card machine 3 and 4.  The mesh holds exactly
+the devices its caller lists; only :func:`make_mesh` picks devices, and it
+takes the machine's CUDA devices or raises.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import P
+
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device, a CUDA device without an index pinned to
+    the current one (so that equal devices compare equal)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class Mesh:
+    """``devices``: an array-like of devices (``torch.device`` or a name)
+    whose dimensions are the mesh axes ``axis_names``, in order."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        grid = np.asarray(devices, dtype=object)
+        flat = np.empty(grid.size, dtype=object)
+        flat[:] = [_device(d) for d in grid.flat]
+        self.devices = flat.reshape(grid.shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_names) != self.devices.ndim:
+            raise ValueError(f"{len(self.axis_names)} axis names for a "
+                             f"{self.devices.ndim}-d device grid")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axis names repeat: {self.axis_names}")
+        if self.devices.size == 0:
+            raise ValueError("a mesh needs at least one device")
+
+    @property
+    def shape(self) -> collections.OrderedDict:
+        """Axis name -> size, in axis order (as ``jax.sharding.Mesh``)."""
+        return collections.OrderedDict(zip(self.axis_names,
+                                           self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def distinct_devices(self) -> list[torch.device]:
+        """Each device of the mesh once, in mesh order."""
+        return list(dict.fromkeys(self.devices.flat))
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
+        return f"Mesh({axes}; {[str(d) for d in self.devices.flat]})"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A placement: ``spec`` over ``mesh``'s axes."""
+    mesh: Mesh
+    spec: P
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], *,
+              devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``devices`` (row-major), by default the
+    first prod(shape) CUDA devices; raises ``RuntimeError`` when there are
+    fewer, and never repeats a device or takes the CPU on its own."""
+    shape = tuple(int(n) for n in shape)
+    n = math.prod(shape)
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise RuntimeError(
+                f"a {shape} mesh needs {n} CUDA devices, found {have}; pass "
+                f"devices= to name them (a device may repeat: a logical "
+                f"mesh)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"a {shape} mesh needs {n} devices, got "
+                         f"{len(devices)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(shape), names)

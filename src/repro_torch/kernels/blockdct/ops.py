@@ -122,9 +122,9 @@ def forward_quant_raster(frames, dmat, qtab):
     rec = torch.empty_like(frames)
     fn = build.kernel_function("blockdct", "blockdct_forward_quant",
                                _FORWARD_ARGTYPES)
-    build.launch("blockdct_forward", fn, build.ptr(frames), build.ptr(dmat),
-                 build.ptr(qtab), qstride, F, H, W, build.ptr(q),
-                 build.ptr(rec), build.stream_ptr(frames.device))
+    build.launch("blockdct_forward", fn, frames.device, build.ptr(frames),
+                 build.ptr(dmat), build.ptr(qtab), qstride, F, H, W,
+                 build.ptr(q), build.ptr(rec))
     return q, rec
 
 
@@ -146,9 +146,9 @@ def inverse_raster(q, dmat, qtab, H: int, W: int):
                       device=q.device)
     fn = build.kernel_function("blockdct", "blockdct_inverse",
                                _INVERSE_ARGTYPES)
-    build.launch("blockdct_inverse", fn, build.ptr(q), build.ptr(dmat),
-                 build.ptr(qtab), qstride, q.shape[0], H, W, build.ptr(rec),
-                 build.stream_ptr(q.device))
+    build.launch("blockdct_inverse", fn, q.device, build.ptr(q),
+                 build.ptr(dmat), build.ptr(qtab), qstride, q.shape[0], H, W,
+                 build.ptr(rec))
     return rec
 
 

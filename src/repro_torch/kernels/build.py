@@ -110,14 +110,22 @@ def kernel_function(source: str, symbol: str, argtypes: list):
     return fn
 
 
-def launch(name: str, fn, *args) -> None:
-    """Call a C entry and count one launch of kernel ``name``; raise if
-    the launch was refused."""
-    code = fn(*args)
+def launch(name: str, fn, device, *args) -> None:
+    """Call a C entry with ``args`` and the current stream of ``device``,
+    the device of the tensors the wrapper checked, and count one launch
+    of kernel ``name``; raise if the launch was refused.
+
+    The C side launches on the CUDA runtime's current device, which is
+    set per thread and need not be the tensors' (a worker thread starts
+    on device 0, and a stream mesh spans cards), so the call runs under
+    ``torch.cuda.device(device)``."""
+    with torch.cuda.device(device):
+        code = fn(*args, stream_ptr(device))
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
                            f"({fn.error_string(code).decode()})")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -46,6 +46,7 @@
 // within rounding of a .5 boundary.
 
 #include <algorithm>
+#include <atomic>
 #include <climits>
 
 #include "common.cuh"
@@ -267,20 +268,29 @@ inverse_kernel(const float* __restrict__ q_in, const float* __restrict__ dmat,
   }
 }
 
-// Enough warps to fill every SM at the kernel's occupancy, and no more
-// than there are groups of tiles.
+// Enough warps to fill every SM of the current device at the kernel's
+// occupancy, and no more than there are groups of tiles.  The resident
+// block count is cached a device (cards of one machine may differ in SMs),
+// in atomics because launches may come from several host threads.
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-unsigned persistent_grid(Kernel kernel, int groups, int* cached) {
-  if (*cached == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+unsigned persistent_grid(Kernel kernel, int groups,
+                         std::atomic<int>* cached) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int blocks = dev < kMaxDevices ? cached[dev].load(std::memory_order_relaxed)
+                                 : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                   0);
-    *cached = std::max(1, sms * per_sm);
+    blocks = std::max(1, sms * per_sm);
+    if (dev < kMaxDevices) cached[dev].store(blocks, std::memory_order_relaxed);
   }
   return static_cast<unsigned>(
-      std::min(*cached, (groups + kWarps - 1) / kWarps));
+      std::min(blocks, (groups + kWarps - 1) / kWarps));
 }
 
 bool aligned16(const void* p) {
@@ -307,7 +317,7 @@ extern "C" int blockdct_forward_quant(const float* frames, const float* dmat,
                                       const float* qtab, int qstride, long F,
                                       int H, int W, float* q, float* rec,
                                       cudaStream_t stream) {
-  static int cached = 0;
+  static std::atomic<int> cached[kMaxDevices];
   Geometry geo;
   if (!geometry(F, H, W, &geo) || (qstride != 0 && qstride != 64))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -315,7 +325,7 @@ extern "C" int blockdct_forward_quant(const float* frames, const float* dmat,
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
   forward_quant_kernel<<<persistent_grid(forward_quant_kernel, groups,
-                                         &cached),
+                                         cached),
                          kThreads, 0, stream>>>(frames, dmat, qtab, qstride,
                                                 geo, q, rec);
   return static_cast<int>(cudaGetLastError());
@@ -326,14 +336,14 @@ extern "C" int blockdct_forward_quant(const float* frames, const float* dmat,
 extern "C" int blockdct_inverse(const float* q, const float* dmat,
                                 const float* qtab, int qstride, long F, int H,
                                 int W, float* rec, cudaStream_t stream) {
-  static int cached = 0;
+  static std::atomic<int> cached[kMaxDevices];
   Geometry geo;
   if (!geometry(F, H, W, &geo) || (qstride != 0 && qstride != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(rec) || !aligned16(dmat))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int groups = (geo.tiles + kTilesPerWarp - 1) / kTilesPerWarp;
-  inverse_kernel<<<persistent_grid(inverse_kernel, groups, &cached), kThreads,
+  inverse_kernel<<<persistent_grid(inverse_kernel, groups, cached), kThreads,
                    0, stream>>>(q, dmat, qtab, qstride, geo, rec);
   return static_cast<int>(cudaGetLastError());
 }

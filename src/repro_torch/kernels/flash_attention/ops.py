@@ -93,9 +93,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     out = torch.empty_like(q)
     fn = build.kernel_function("flash_attention", "flash_attention_launch",
                                _ARGTYPES)
-    build.launch("flash_attention", fn, build.ptr(q), build.ptr(k),
-                 build.ptr(v), build.ptr(out), B, Sq, Sk, H, Hk, D,
-                 int(causal), -1 if window is None else int(window),
-                 int(dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-                 build.stream_ptr(q.device))
+    build.launch("flash_attention", fn, q.device, build.ptr(q),
+                 build.ptr(k), build.ptr(v), build.ptr(out), B, Sq, Sk, H,
+                 Hk, D, int(causal), -1 if window is None else int(window),
+                 int(dtype == torch.bfloat16), 1.0 / math.sqrt(D))
     return out

@@ -180,8 +180,8 @@ def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
                      device=cur.device)
     sad = torch.empty((*lead, H // MB, W // MB), dtype=f32, device=cur.device)
     fn = build.kernel_function("motion_sad", "motion_sad_launch", _ARGTYPES)
-    build.launch(launch_name(search, dtype), fn, build.ptr(cur),
+    build.launch(launch_name(search, dtype), fn, cur.device, build.ptr(cur),
                  build.ptr(ref), frames, H, W, radius,
                  int(search == "diamond"), int(store == torch.bfloat16),
-                 build.ptr(mv), build.ptr(sad), build.stream_ptr(cur.device))
+                 build.ptr(mv), build.ptr(sad))
     return mv, sad

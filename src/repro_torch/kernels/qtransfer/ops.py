@@ -129,8 +129,7 @@ def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
     out = torch.empty_like(anchor)
     fn = build.kernel_function("qtransfer", "qtransfer_launch", _ARGTYPES)
     build.launch("qtransfer_bf16" if bf16 else "qtransfer", fn,
-                 build.ptr(anchor), build.ptr(mv),
+                 anchor.device, build.ptr(anchor), build.ptr(mv),
                  None if resid is None else build.ptr(resid), B, H, W,
-                 EDGES.index(edge), radius, int(bf16), build.ptr(out),
-                 build.stream_ptr(anchor.device))
+                 EDGES.index(edge), radius, int(bf16), build.ptr(out))
     return out

@@ -76,7 +76,7 @@ def roi_gather(planes, ry, rx, *, region_px: int, halo: int):
     out = torch.empty((T, K, P, P), dtype=torch.float32,
                       device=planes.device)
     fn = build.kernel_function("roi_gather", "roi_gather_launch", _ARGTYPES)
-    build.launch("roi_gather", fn, build.ptr(planes), build.ptr(ry),
-                 build.ptr(rx), T, K, Hp, Wp, region_px, halo,
-                 build.ptr(out), build.stream_ptr(planes.device))
+    build.launch("roi_gather", fn, planes.device, build.ptr(planes),
+                 build.ptr(ry), build.ptr(rx), T, K, Hp, Wp, region_px, halo,
+                 build.ptr(out))
     return out

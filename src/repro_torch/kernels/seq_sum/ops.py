@@ -62,6 +62,6 @@ def seq_sum(x):
     build.check_cuda_tensor("x", x, f32, x.device)
     out = torch.empty((L,), dtype=f32, device=x.device)
     fn = build.kernel_function("seq_sum", "seq_sum_launch", _ARGTYPES)
-    build.launch("seq_sum", fn, build.ptr(x), L, R, C, build.ptr(out),
-                 build.stream_ptr(x.device))
+    build.launch("seq_sum", fn, x.device, build.ptr(x), L, R, C,
+                 build.ptr(out))
     return out

@@ -1,10 +1,12 @@
 """Elastic scaling of the serving plane (port of
-``repro.serving.elastic``: ``ElasticPool``, the same numpy code).
+``repro.serving.elastic``: ``ElasticPool``, the same numpy code, and
+``remesh``).
 
 ``ElasticPool`` tracks healthy device groups; the runtime fails a group
-on eviction and recovers it on re-admission.  The reference's ``remesh``
-and ``reshard_params`` rebuild a device mesh and belong to the stream
-sharding slice.
+on eviction and recovers it on re-admission.  ``remesh`` rebuilds a
+(data, model) mesh from the healthy groups' devices.  The reference's
+``reshard_params`` places parameters by logical axes and comes with the
+MoE / Training slices.
 
 Contract with the async dispatch plane (``serving/runtime.py``): an
 eviction re-homes both the evicted shard's QUEUED requests and its
@@ -18,6 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.distributed.mesh import Mesh
+
 
 @dataclasses.dataclass
 class ElasticPool:
@@ -74,3 +80,46 @@ class ElasticPool:
         while p * 2 <= n:
             p *= 2
         return p
+
+
+def remesh(pool: ElasticPool, n_model: int = 1, *, devices=None) -> Mesh:
+    """Build the largest viable (data, model) mesh from healthy groups.
+
+    ``devices`` (by default every CUDA device of the machine; raises
+    without CUDA) are the pool's devices in group order.  When they split
+    evenly across the pool's groups, the mesh is built from the surviving
+    groups' devices specifically (an evicted group's device really leaves
+    the mesh); otherwise the groups are logical and the mesh just shrinks
+    its data axis.  A device may repeat (a logical mesh).
+
+    Raises ``RuntimeError`` instead of producing a 0-sized mesh when too
+    few healthy groups remain to place even one model replica.
+    """
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("remesh: CUDA is not available; pass "
+                               "devices= to name the pool's devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    usable = pool.usable_power_of_two()
+    if usable == 0:
+        raise RuntimeError(
+            f"cannot remesh: 0 of {pool.n_groups} groups healthy")
+    if len(devices) % pool.n_groups == 0 and pool.n_healthy < pool.n_groups:
+        per = len(devices) // pool.n_groups
+        sel = [d for g in pool.healthy_groups()
+               for d in devices[g * per:(g + 1) * per]]
+    else:
+        sel = devices
+    n_data = min(usable, len(sel) // n_model)
+    if n_data < 1:
+        raise RuntimeError(
+            f"cannot remesh: {len(sel)} usable device(s) across "
+            f"{pool.n_healthy}/{pool.n_groups} healthy groups cannot "
+            f"host n_model={n_model}")
+    grid = np.empty(n_data * n_model, dtype=object)
+    grid[:] = sel[:n_data * n_model]
+    return Mesh(grid.reshape(n_data, n_model), ("data", "model"))

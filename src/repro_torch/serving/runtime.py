@@ -1,5 +1,5 @@
 """BiSwift edge serving runtime: decoder -> pipelines -> results (port of
-``repro.serving.runtime``, without its mesh-sharded mode).
+``repro.serving.runtime``).
 
 Binds the hybrid decoder's three pipelines to the scheduler's queues and
 the detector, per chunk per stream: the paper's Fig. 4 right half.  The
@@ -22,7 +22,14 @@ runtime is a submit/flush/poll dispatcher in the style of LLM serving:
     device-to-host copy.
 
 ``process_chunk`` is ``poll(submit_chunk(...))``.  Everything runs on one
-CUDA stream.
+CUDA stream a device.
+
+Mesh mode (``mesh=``/``rules=``): the stream axis's extent on the mesh
+sets the shard count, and shard i's detector has its own copy of the
+params on mesh device i (mod the mesh's size): a dispatch moves its
+payload there, and the batch's detections come back to the staging
+device before the scatter and the carry.  Without a mesh, shards are
+logical, all on the runtime's device.
 
 The reference pads each detector batch to ``_pad_bucket(n, batch_size)``
 rows and the ticket planes to a power of two, to bound XLA's trace cache;
@@ -55,6 +62,7 @@ from repro_torch.core.hybrid_encoder import HybridPacket
 from repro_torch.core.reuse import reuse_chunk
 from repro_torch.core.roi import region_grid, region_scores, roi_infer
 from repro_torch.device import host_to_device, resolve_device
+from repro_torch.distributed.stream_sharding import stream_shard_count
 from repro_torch.models import detection as D
 from repro_torch.serving.elastic import ElasticPool
 from repro_torch.serving.scheduler import (AdmissionController, InferRequest,
@@ -239,41 +247,74 @@ class EdgeRuntime:
                  degrade: DegradeConfig | None = None,
                  hedge: HedgeConfig | None = None,
                  straggler_cfg: DetectorConfig | None = None, device=None):
-        """``faults`` (a ``FaultSchedule``) arms the chaos plane: the
+        """``mesh``/``rules`` (a :class:`~repro_torch.distributed.mesh.Mesh`
+        and an ``AxisRules`` with a "stream" entry) switch the runtime to
+        mesh mode: n_shards is the mesh's stream extent, streams map to
+        shards round-robin, each dispatch drains only its own shard's
+        queues, and shard i's detector runs on mesh device i (its params
+        copied once a distinct device).  Chunks are staged on ``device``,
+        by default the mesh's first device in mesh mode and CUDA
+        otherwise.
+
+        ``faults`` (a ``FaultSchedule``) arms the chaos plane: the
         degradation ladder (``degrade``), hedged dispatch (``hedge``) and
         straggler eviction (``straggler_cfg``) all activate; without it
         the runtime serves plainly (stats still collected).
-        ``cfg.n_shards > 1`` gives logical shards on the one device, each
-        with its slice of the capacity.  The reference's mesh-sharded
-        mode (``mesh``/``rules``) is not ported.  Runs on CUDA unless
-        ``device`` says otherwise."""
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "mesh=/rules= (the mesh-sharded runtime) belong to the "
-                "stream sharding slice, which is not ported; logical "
-                "shards (ServingConfig.n_shards > 1) run on one device")
+        ``cfg.n_shards > 1`` without a mesh gives logical shards on the
+        one device, each with its slice of the capacity."""
+        if (mesh is None) != (rules is None):
+            raise ValueError("mesh mode needs BOTH mesh= and rules= (got "
+                             "only one)")
+        if mesh is not None:
+            cfg = dataclasses.replace(
+                cfg, n_shards=stream_shard_count(mesh, rules))
+            if device is None:
+                device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_shards = max(cfg.n_shards, 1)
         self.det_cfg = det_cfg
         self.costs = costs
 
-        params = {k: torch.as_tensor(v).to(self.device)
-                  for k, v in detector_params.items()}
         # in ROI mode the dispatch payload is (frames, region scores) and
         # each row runs only its top-K gated region patches
         roi = getattr(cfg, "roi", None)
-        if roi is None:
-            def infer(frames):
-                return D.decode_boxes(D.forward(params, det_cfg, frames),
-                                      det_cfg)
-        else:
-            def infer(payload):
-                return roi_infer(params, det_cfg, roi, payload[0],
-                                 payload[1])
+
+        def make_infer(params, dev=None):
+            # a shard's replica moves the payload to its own device: the
+            # hedge's backup gets the primary's staged batch
+            def to_dev(x):
+                return x if dev is None else x.to(dev, non_blocking=True)
+
+            if roi is None:
+                def infer(frames):
+                    return D.decode_boxes(
+                        D.forward(params, det_cfg, to_dev(frames)), det_cfg)
+            else:
+                def infer(payload):
+                    return roi_infer(params, det_cfg, roi,
+                                     to_dev(payload[0]), to_dev(payload[1]))
+            return infer
+
+        placed = {}     # the params once a distinct device
+
+        def params_on(dev):
+            if dev not in placed:
+                placed[dev] = {k: torch.as_tensor(v).to(dev)
+                               for k, v in detector_params.items()}
+            return placed[dev]
+
         self.roi = roi
         self.anchor_search = bool(getattr(cfg, "anchor_search", False))
-        self._infer = infer
+        self._infer = make_infer(params_on(self.device))
+        # mesh mode: shard i's detector on mesh device i
+        self._shard_infer: list | None = None
+        if mesh is not None and self.n_shards > 1:
+            devs = list(mesh.devices.flat)
+            shard_devs = [devs[i % len(devs)] for i in range(self.n_shards)]
+            replicas = {dev: make_infer(params_on(dev), dev)
+                        for dev in dict.fromkeys(shard_devs)}
+            self._shard_infer = [replicas[dev] for dev in shard_devs]
         self.queues = PipelineQueues(cfg, self._infer_batch)
         self.admission = AdmissionController(cfg)
         self.streams: dict[int, StreamState] = {}
@@ -314,10 +355,16 @@ class EdgeRuntime:
         active shards, so eviction re-homes streams onto survivors."""
         return self.active_shards[stream % len(self.active_shards)]
 
+    def _shard_fn(self, shard: int | None):
+        """The detector a dispatch of ``shard`` runs: its own in mesh
+        mode, else the runtime's one."""
+        return self._infer if self._shard_infer is None or shard is None \
+            else self._shard_infer[shard]
+
     def _rebuild_hedge(self):
         old = self._hedge
         self._hedge = HedgedExecutor(
-            self._hedge_cfg, [self._infer for _ in self.active_shards])
+            self._hedge_cfg, [self._shard_fn(s) for s in self.active_shards])
         if old is not None:
             self._hedge.lat.extend(old.lat)
             self._hedge.hedges = old.hedges
@@ -328,8 +375,9 @@ class EdgeRuntime:
         return 0 if self._hedge is None else self._hedge.hedges
 
     def _infer_batch_dev(self, frames, shard=None, n_rows=None):
-        """Detector dispatch returning DEVICE tensors ``(boxes, scores)``;
-        nothing here waits for the device.  With a fault schedule armed,
+        """Detector dispatch returning DEVICE tensors ``(boxes, scores)``,
+        on the shard's device in mesh mode (else the runtime's); nothing
+        here waits for the device.  With a fault schedule armed,
         the dispatch's simulated step time (``n_rows`` rows at the shard's
         capacity, times the schedule's slowdown) feeds the straggler
         detector, and the call hedges across the active shards when the
@@ -352,7 +400,7 @@ class EdgeRuntime:
                 out, _ = self._hedge.run(frames,
                                          simulate_latency=sim, primary=idx)
                 return out
-        return self._infer(frames)
+        return self._shard_fn(shard)(frames)
 
     def _infer_batch(self, frames, shard=None):
         """Legacy host-facing executor (``PipelineQueues.drain_fused``):
@@ -646,10 +694,14 @@ class EdgeRuntime:
                 batch, shard=shard,
                 n_rows=_pad_bucket(len(reqs), self.cfg.batch_size))
             event = None
-            if dev.type == "cuda":
+            if bb.device.type == "cuda":
+                # on the device that ran the batch: the shard's in mesh mode
                 event = torch.cuda.Event()
-                event.record()
+                event.record(torch.cuda.current_stream(bb.device))
             self._inflight[shard].append(event)
+            # finish on the staging device: the carry lives on ONE device
+            # whichever shard (or hedge replica) ran the batch
+            bb, bs = bb.to(dev), bs.to(dev)
 
         for tk in tickets:
             pos = np.full(T, -1, np.int32)

@@ -507,9 +507,18 @@ def test_runtime_evict_and_recover_match_reference(weights, packets):
 
 
 def test_runtime_rejects_mesh_mode(weights):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        R.EdgeRuntime(SCH.ServingConfig(n_streams=2), weights[1], DET,
-                      mesh=object(), rules=object(), device="cpu")
+    # mesh mode is ported (tests/test_torch_sharding.py); what the runtime
+    # rejects is half of it: a mesh without rules, or rules without a mesh
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import SINGLE_POD_RULES
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    for kw in (dict(mesh=mesh), dict(rules=SINGLE_POD_RULES)):
+        with pytest.raises(ValueError, match="BOTH mesh= and rules="):
+            R.EdgeRuntime(SCH.ServingConfig(n_streams=2), weights[1], DET,
+                          device="cpu", **kw)
+    rt = R.EdgeRuntime(SCH.ServingConfig(n_streams=2), weights[1], DET,
+                       mesh=mesh, rules=SINGLE_POD_RULES)
+    assert rt.n_shards == 2 and rt.device == torch.device("cpu")
 
 
 # -------------------------------------------------------------- serve

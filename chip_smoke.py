@@ -6,6 +6,7 @@
                                                   (one profile)
     python3 chip_smoke.py --sharded   (phases 1, 2, the worker-thread
                   check and 6b' alone; on several cards, a mesh over them)
+    python3 chip_smoke.py --train     (phases 1, 2 and 6e alone)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -92,6 +93,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the fused one; 64x96 packets through the runtime on the card against
    the CPU; one round profiled in a process of its own (busy share,
    device ops, host operators, device-to-host copies and bytes);
+6e. train: the TinyDetector trained through ``train/loop.run`` on the
+   serving streams for about a minute, checkpointed in the reference's
+   layout, restored bit for bit and served by ``serve.main
+   --detector-ckpt`` (F1 beside the quick-train run's); ``mm_f32``'s
+   backward against autograd through the widened f32 product;
+   llama3.2-1B at full width: ``attention_impl="pallas"`` must raise under
+   autograd, grad_accum 2 against 1 on one 2x4096 batch, 6 loop steps
+   (step time, tokens/s, share of peak, peak memory); a supervised restart
+   of a 2-layer cut in a child process with deterministic algorithms, bit
+   for bit an unbroken run; every kernel wrapper raising under autograd
+   on CUDA;
 7. lm: llama3.2-1B at full width and depth (random weights from a seed)
    serves two 4096-token requests: prefill through ``flash_attention``
    (16 launches a prefill, nothing else), 32 greedy decode steps over the
@@ -2771,9 +2783,9 @@ def _patched(*triples):
     return stack
 
 
-def _serve_run() -> dict:
-    """serve.main at the paper's load with its default quick-train, the
-    split of each round and the launches of each stream-chunk."""
+def _serve_run(argv=SERVE_ARGV) -> dict:
+    """serve.main at the paper's load (by default with its quick-train),
+    the split of each round and the launches of each stream-chunk."""
     import collections
     import torch
     from repro_torch.kernels import build
@@ -2833,7 +2845,7 @@ def _serve_run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     with patches:
-        out = S.main(SERVE_ARGV)
+        out = S.main(argv)
         torch.cuda.synchronize()
         end = time.perf_counter()
         chunk_boundary()
@@ -2889,7 +2901,7 @@ def _soak_split(rt_cls):
                        (rt_cls, "_infer_batch_dev", counted_infer))
 
 
-def phase_serving(params, det_cfg) -> dict:
+def phase_serving(params, det_cfg) -> tuple:
     """[serving]: (1) serve.main on nine 720p streams, three chunks, the
     SAC controller, its 150-step quick-train; (2) the chaos soak at the
     paper's load: loss-burst chunk-sequential and batch-submit, held equal
@@ -2897,7 +2909,7 @@ def phase_serving(params, det_cfg) -> dict:
     (3) one batch-submit round with the ROI gate and the anchor search;
     (4) the legacy decode of one 720p packet against the fused one; (5)
     64x96 packets through the runtime on the card against the port's CPU
-    path.  Returns the launches of the runs."""
+    path.  Returns the launches of the runs and (1)'s summary."""
     import collections
     import numpy as np
     import torch
@@ -3052,7 +3064,18 @@ def phase_serving(params, det_cfg) -> dict:
 
     # (5) 64x96 packets on the card against the port's CPU path
     _serving_parity(params, det_cfg)
-    return dict(launches)
+    return dict(launches), _serve_summary(r)
+
+
+def _serve_summary(r: dict) -> dict:
+    """A serve run's mean F1 and chunk latency (ms), its rounds (ms), the
+    median of the later ones and its frames/s."""
+    steady = statistics.median(r["rounds"][1:])
+    return dict(f1=statistics.mean(r["out"]["f1"]),
+                latency_ms=statistics.mean(r["out"]["latency"]) * 1e3,
+                rounds=r["rounds"], steady_ms=steady,
+                fps=BATCHED_STREAMS * T / steady * 1e3,
+                serve_fps=r["out"]["fps"])
 
 
 def _serving_parity(params, det_cfg) -> None:
@@ -3173,6 +3196,464 @@ def phase_profile_serving(params, det_cfg) -> None:
     rt.close()
 
 
+# [train]: the training stack on the card.  (a) the TinyDetector trained
+# through train/loop.run on the streams serve.main serves
+# (paper_stream_mix(9, 720, 1280), the reference's unscaled objects),
+# 4-frame chunks in turns, fit_step's AdamW (quick_train's: lr 3e-3, 10
+# warm-up steps), TRAIN_DET_STEPS steps (a minute or so of the card); saved in
+# the reference's layout, restored bit for bit, served by
+# serve.main --detector-ckpt; (b) llama3.2-1B at full width and depth on
+# train_4k's 4096-token sequences, its batch cut from 256 to 2 and its
+# grad_accum from 8 to 2, remat on, attention_impl "xla" (the reference's
+# default: the kernel has no backward); (c) a supervised restart of the
+# same widths cut to RESTART_LAYERS layers, in a process of its own with
+# deterministic algorithms; (d) the kernels' grad guard on CUDA tensors
+TRAIN_DET_STEPS = 2700
+TRAIN_DET_LOG_POINTS = 12
+LLAMA_TRAIN = dict(batch=2, seq_len=4096, grad_accum=2)
+LLAMA_TRAIN_STEPS = 6
+RESTART_LAYERS = 2
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 6, 2, 3
+# grad_accum 2 against 1 on one batch: the same sums in another order and
+# on other GEMM shapes, each half's bf16 gradient rounded on its own.  The
+# loss and grad norm within these; AdamW's first moment mu (0.1 x the
+# clipped gradient, the one state that carries the gradient's direction)
+# within GA_MU_RTOL of each leaf's norm; and at least GA_SAME_SHARE of the
+# updated params bit for bit (Adam's first step moves a weight by
+# lr x sign(g): a dropped or doubled microbatch flips many signs)
+GA_LOSS_RTOL = 1e-5
+GA_NORM_RTOL = 1e-3
+GA_MU_RTOL = 1e-2
+GA_SAME_SHARE = 0.999
+# mm_f32's differentiable CUDA GEMM against autograd through the widened
+# f32 product on the same card: f32 sums in another order
+MM_F32_RTOL = 1e-5
+
+
+def _train_detector(det_cfg):
+    """(a), training: returns (params, steps, wall s)."""
+    import torch
+    from repro_torch.launch.serve import fit_step
+    from repro_torch.models import detection as D
+    from repro_torch.sim.video_source import generate_chunk, paper_stream_mix
+    from repro_torch.train import loop as LOOP
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    streams = paper_stream_mix(BATCHED_STREAMS, H_HD, W_HD)
+
+    def data(n):
+        for i in range(n):
+            yield generate_chunk(streams[i % len(streams)], i * 4, 4)
+
+    def fresh():
+        params = D.init(torch.Generator().manual_seed(1), det_cfg)
+        return {"params": params, "opt": init_state(params)}
+
+    def make_step(n):
+        ocfg = AdamWConfig(lr=3e-3, weight_decay=0.0, warmup_steps=10,
+                           total_steps=n)
+
+        def step(state, batch):
+            p, o, loss = fit_step(state["params"], state["opt"], det_cfg,
+                                  ocfg, *batch)
+            return {"params": p, "opt": o}, {"loss": loss}
+        return step
+
+    n, k = TRAIN_DET_STEPS, TRAIN_DET_LOG_POINTS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = LOOP.run(make_step(n), fresh(), data(n),
+                           LOOP.LoopConfig(total_steps=n, log_every=n // k))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"[train] detector: a non-finite loss {hist}")
+    print(f"[train] detector: {n} steps of 4 frames of 720x1280 through "
+          f"train/loop.run in {wall:.1f} s ({n / wall:.1f} steps/s); "
+          f"loss by step: " + ", ".join(
+              f"{h['step']}: {h['loss']:.4f}" for h in hist))
+    return state["params"], n, wall
+
+
+def _serve_trained(params, steps: int, quick) -> dict:
+    """(a), serving: the checkpoint in the reference's layout, restored
+    bit for bit, then serve.main --detector-ckpt on nine 720p streams.
+    Returns the serve run's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models.weights import (detector_params_from_jax,
+                                            detector_params_to_jax)
+    from repro_torch.train import checkpoint as CKPT
+    tmp = tempfile.mkdtemp(prefix="detector_ckpt_")
+    try:
+        like = detector_params_to_jax(params)
+        CKPT.save(tmp, steps, like)
+        nbytes = os.path.getsize(os.path.join(tmp, f"step_{steps}",
+                                              "arrays.npz"))
+        back = detector_params_from_jax(CKPT.restore(tmp, steps, like))
+        differ = [k for k in params if not torch.equal(back[k], params[k])]
+        if differ or back.keys() != params.keys():
+            raise AssertionError(f"[train] detector checkpoint: restored "
+                                 f"params differ in {differ}")
+        print(f"[train] detector checkpoint: step {steps} in the "
+              f"reference's layout (HWIO f32), {nbytes} bytes; restored bit "
+              f"for bit ({len(params)} tensors)")
+        r = _serve_run(SERVE_ARGV + ["--detector-ckpt", tmp])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if r["split"].calls["quick_train"]:
+        raise AssertionError("[train] serve quick-trained after a restore")
+    got = _serve_summary(r)
+    print(f"[train] serve --detector-ckpt: rounds of {BATCHED_STREAMS} "
+          f"streams x {T}x{H_HD}x{W_HD}: "
+          f"{', '.join(f'{v:.1f}' for v in got['rounds'])} ms; median of the "
+          f"later {got['steady_ms']:.1f} ms ({got['fps']:.1f} frames/s); "
+          f"serve's own {got['serve_fps']:.1f} frames/s; mean F1 "
+          f"{got['f1']:.4f}, mean chunk latency {got['latency_ms']:.1f} ms, "
+          f"peak {r['peak'] / 2**30:.2f} GiB; launches over the run "
+          f"{r['launches']} ({SERVE_LAUNCHES} each stream-chunk)")
+    if quick is None:
+        print("[train] the quick-train serve run: not run in this process")
+    else:
+        print(f"[train] beside [serving]'s quick-train serve run in this "
+              f"process: mean F1 {quick['f1']:.4f}, mean chunk latency "
+              f"{quick['latency_ms']:.1f} ms, median round "
+              f"{quick['steady_ms']:.1f} ms ({quick['fps']:.1f} frames/s)")
+    return r["launches"]
+
+
+def _check_mm_f32(g) -> None:
+    """(b), the one differentiable piece the training path adds on the
+    card: mm_f32's CUDA GEMM with an f32 output and its backward, against
+    autograd through the widened f32 product, at the LM's FFN shape and
+    at an attention score's (batched)."""
+    import torch
+    from repro_torch.models import layers as L
+    bf16 = torch.bfloat16
+    for a_shape, b_shape in (((4096, 2048), (2048, 8192)),
+                             ((2, 32, 512, 64), (2, 32, 64, 512))):
+        a = torch.randn(a_shape, generator=g, device="cuda").to(bf16)
+        b = (torch.randn(b_shape, generator=g, device="cuda") * 0.05).to(bf16)
+        up = torch.randn((*a_shape[:-1], b_shape[-1]), generator=g,
+                         device="cuda")
+        outs = []
+        for fn in (L.mm_f32, lambda x, y: torch.matmul(x.float(),
+                                                       y.float())):
+            x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+            out = fn(x, y)
+            outs.append((out.detach(),
+                         *torch.autograd.grad(out, (x, y), up)))
+        (o, ga, gb), (ro, ra, rb) = outs
+        gap = float((o - ro).abs().max() / ro.abs().max())
+        # each gradient within one bf16 ulp of the widened product's
+        ulp = [bool(((p.float() - q.float()).abs()
+                     <= q.float().abs() * 2.0 ** -7).all())
+               for p, q in ((ga, ra), (gb, rb))]
+        if gap > MM_F32_RTOL or not all(ulp):
+            raise AssertionError(f"[train] mm_f32 {a_shape} @ {b_shape}: "
+                                 f"out gap {gap}, grads within an ulp {ulp}")
+        same = ["bit for bit" if torch.equal(p, q) else "within an ulp"
+                for p, q in ((ga, ra), (gb, rb))]
+        print(f"[train] mm_f32 {a_shape} @ {b_shape} under autograd vs the "
+              f"widened f32 product: out within {gap:.3g} of max "
+              f"(tolerance {MM_F32_RTOL}), d/da {same[0]}, d/db {same[1]}")
+
+
+def _train_llama() -> None:
+    """(b): llama3.2-1B at full width and depth."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeCase, get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import params as PM
+    from repro_torch.train import loop as LOOP
+    arch = get_arch("llama3_2_1b")
+    cfg = arch.cfg
+    if not cfg.remat or cfg.attention_impl != "xla":
+        raise AssertionError("[train] llama: expected remat and xla")
+    case = ShapeCase("train_4k", "train", **LLAMA_TRAIN)
+    B, S_ = case.batch, case.seq_len
+    g = torch.Generator(device="cuda").manual_seed(0)
+    _check_mm_f32(g)
+    state, batch = S.materialize(g, arch, case)
+
+    # the kernel path under autograd raises the guard's error
+    pallas = dataclasses.replace(arch, cfg=dataclasses.replace(
+        cfg, attention_impl="pallas"))
+    try:
+        S.make_train_fn(pallas)(state, {k: v[:1, :256]
+                                        for k, v in batch.items()})
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"[train] llama with attention_impl='pallas', one step under "
+              f"autograd: RuntimeError: {e}")
+    else:
+        raise AssertionError("[train] llama: the pallas step did not raise")
+
+    # grad_accum 2 against 1 on one batch: grad_accum 1's params and mu
+    # are kept, grad_accum 2's compared leaf by leaf as they come
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new1, m1 = S.make_train_fn(arch, 1)(state, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter() - t0
+    p1, mu1 = new1["params"], new1["opt"]["mu"]
+    del new1
+    t0 = time.perf_counter()
+    new2, m2 = S.make_train_fn(arch, 2)(state, batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter() - t0
+    m1, m2 = ({k: float(v) for k, v in m.items()} for m in (m1, m2))
+    loss_gap = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+    norm_gap = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    equal, total, mu_gap = 0, 0, 0.0
+    for a, b in zip(PM.tree_leaves(new2["params"]), PM.tree_leaves(p1)):
+        equal += int((a == b).sum())
+        total += a.numel()
+    for a, b in zip(PM.tree_leaves(new2["opt"]["mu"]), PM.tree_leaves(mu1)):
+        mu_gap = max(mu_gap, float((a - b).norm() / b.norm()))
+    print(f"[train] llama grad_accum 2 vs 1 on one batch of {B}x{S_}: loss "
+          f"{m2['loss']:.6f} vs {m1['loss']:.6f} (gap {loss_gap:.3g}, "
+          f"tolerance {GA_LOSS_RTOL}), grad norm {m2['grad_norm']:.5g} vs "
+          f"{m1['grad_norm']:.5g} (gap {norm_gap:.3g}, tolerance "
+          f"{GA_NORM_RTOL}), lr {m1['lr']:.3g}; mu's largest |d| / |mu| "
+          f"over the leaves {mu_gap:.3g} (tolerance {GA_MU_RTOL}); updated "
+          f"params {equal / total:.6f} bit for bit (at least "
+          f"{GA_SAME_SHARE}); steps {t1 * 1e3:.1f} / {t2 * 1e3:.1f} ms "
+          f"(first calls)")
+    if loss_gap > GA_LOSS_RTOL or norm_gap > GA_NORM_RTOL \
+            or not mu_gap <= GA_MU_RTOL or equal / total < GA_SAME_SHARE \
+            or m1["lr"] != m2["lr"]:
+        raise AssertionError("[train] llama: grad_accum 2 departs from 1")
+    del new2, p1, mu1
+
+    # LLAMA_TRAIN_STEPS steps through the loop, a fresh batch a step
+    def data():
+        while True:
+            toks = torch.randint(0, cfg.vocab, (B, S_), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            yield {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    step = S.make_train_fn(arch, case.grad_accum)
+    times = []
+
+    def timed(st, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(st, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = LOOP.run(timed, state, data(), LOOP.LoopConfig(
+        total_steps=LLAMA_TRAIN_STEPS, log_every=1))
+    peak = torch.cuda.max_memory_allocated()
+    if len(hist) != LLAMA_TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist):
+        raise AssertionError(f"[train] llama: losses {hist}")
+    med = statistics.median(times[1:])
+    tokens = B * S_
+    n_params = cfg.param_count()
+    flops = 6 * n_params * tokens
+    losses = _losses(hist)
+    norms = ", ".join(f"{h['grad_norm']:.4g}" for h in hist)
+    print(f"[train] llama3.2-1B train: {LLAMA_TRAIN_STEPS} steps of {B}x{S_}"
+          f" tokens, grad_accum {case.grad_accum}, remat, xla attention: "
+          f"losses {losses}; grad norms {norms}")
+    print(f"[train] llama3.2-1B train: step times "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of the "
+          f"later {med * 1e3:.1f} ms, {tokens / med:.1f} tokens/s; 6 N tokens "
+          f"= {flops:.4g} FLOP a step (N = {n_params:,}, the recompute not "
+          f"counted) = {flops / med / 1e12:.1f} TFLOP/s, "
+          f"{flops / med / BF16_TC_OPS_PER_S * 100:.2f} % of 989 TFLOP/s; "
+          f"peak {peak / 2**30:.2f} GiB")
+
+
+def _losses(hist) -> str:
+    return ", ".join(f"{h['loss']:.4f}" for h in hist)
+
+
+def phase_train_restart() -> None:
+    """(c), ``--train-restart`` in a process of its own (CUBLAS_WORKSPACE_
+    CONFIG set before CUDA starts): fault_tolerance.supervise at
+    llama3.2-1B's widths cut to RESTART_LAYERS layers, a checkpoint every
+    RESTART_EVERY steps (keep 1) under a temporary directory, a failure
+    injected at step RESTART_FAIL_AT; the final state against an
+    uninterrupted run's, bit for bit, under
+    torch.use_deterministic_algorithms (an op without a deterministic form
+    raises)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import ShapeCase, get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import loop as LOOP
+    torch.use_deterministic_algorithms(True)
+    full = get_arch("llama3_2_1b")
+    arch = dataclasses.replace(full, cfg=dataclasses.replace(
+        full.cfg, n_layers=RESTART_LAYERS))
+    case = ShapeCase("train_4k", "train", **LLAMA_TRAIN)
+    step = S.make_train_fn(arch, case.grad_accum)
+
+    def initial():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return S.materialize(gen, arch, case)[0]
+
+    def batches(start):
+        """Batch i from seed 100 + i: a resumed run reads what an
+        uninterrupted one would."""
+        for i in range(start, RESTART_STEPS):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            toks = torch.randint(0, arch.cfg.vocab, (case.batch,
+                                                     case.seq_len),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            yield {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    timing = {"save": [], "restore": []}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    tmp = tempfile.mkdtemp(prefix="restart_ckpt_")
+    restarts = []
+    try:
+        cfg = LOOP.LoopConfig(total_steps=RESTART_STEPS, ckpt_dir=tmp,
+                              ckpt_every=RESTART_EVERY, log_every=1, keep=1)
+        with _patched((CKPT, "save", timed("save", CKPT.save)),
+                      (CKPT, "restore", timed("restore", CKPT.restore))):
+            res = FT.supervise(
+                lambda attempt: (step, initial(), None),
+                lambda: batches(CKPT.latest_step(tmp) or 0), cfg,
+                fail_injector=lambda s: s == RESTART_FAIL_AT,
+                on_restart=lambda n: restarts.append(CKPT.latest_step(tmp)))
+            nbytes = os.path.getsize(os.path.join(
+                tmp, f"step_{RESTART_STEPS}", "arrays.npz"))
+            free = shutil.disk_usage(tmp).free
+            state, hist = LOOP.run(step, initial(), batches(0),
+                                   LOOP.LoopConfig(total_steps=RESTART_STEPS,
+                                                   log_every=1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if res.restarts != 1 or restarts != [RESTART_EVERY]:
+        raise AssertionError(f"[train] restart: {res.restarts} restarts "
+                             f"from steps {restarts}")
+    pairs = list(zip(CKPT._flatten(res.state), CKPT._flatten(state)))
+    differ = [ka for (ka, a), (_, b) in pairs if not torch.equal(a, b)]
+    print(f"[train] restart: llama3.2-1B widths, {RESTART_LAYERS} of 16 "
+          f"layers, {case.batch}x{case.seq_len} tokens a step, grad_accum "
+          f"{case.grad_accum}: {RESTART_STEPS} steps, a checkpoint every "
+          f"{RESTART_EVERY}, failure injected at step {RESTART_FAIL_AT}: "
+          f"{res.restarts} restart from step {restarts[0]}; losses "
+          f"{_losses(res.history)} (the uninterrupted run's "
+          f"{_losses(hist)})")
+    print(f"[train] restart: checkpoint {nbytes} bytes ({nbytes / 2**30:.2f} "
+          f"GiB; {free / 2**30:.1f} GiB free there); save "
+          f"{', '.join(f'{t:.2f}' for t in timing['save'])} s, restore "
+          f"{', '.join(f'{t:.2f}' for t in timing['restore'])} s")
+    if differ:
+        raise AssertionError(f"[train] restart: {len(differ)} of "
+                             f"{len(pairs)} tensors differ from the "
+                             f"uninterrupted run's: {differ}")
+    print(f"[train] restart: final params and optimiser state bit for bit "
+          f"the uninterrupted run's ({len(pairs)} tensors; deterministic "
+          f"algorithms on)")
+
+
+def _check_grad_guard() -> None:
+    """(d): every kernel wrapper on CUDA tensors raises under autograd
+    with an argument that requires grad, then runs without."""
+    import torch
+    from repro_torch.kernels.blockdct import ops as BD
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.motion_sad.ops import motion_sad
+    from repro_torch.kernels.qtransfer.ops import qtransfer
+    from repro_torch.kernels.roi_gather.ops import roi_gather
+    from repro_torch.kernels.seq_sum.ops import seq_sum
+    from repro_torch.codec.blockdct import dct_matrix, quant_table
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    dmat, qtab = dct_matrix(8, dev), quant_table(50.0, dev)
+    mv = torch.zeros((1, 2, 2, 2), dtype=torch.int32, device=dev)
+    idx = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    calls = {
+        "flash_attention": (lambda x: flash_attention(x, x, x, causal=True),
+                            r(1, 64, 2, 64).to(torch.bfloat16)),
+        "motion_sad": (lambda x: motion_sad(x, x, 2), r(32, 32) * 255),
+        "blockdct.forward_quant": (lambda x: BD.forward_quant(x, dmat, qtab),
+                                   r(3, 8, 8) * 255),
+        "blockdct.forward_quant_raster": (
+            lambda x: BD.forward_quant_raster(x, dmat, qtab),
+            r(2, 16, 16) * 255),
+        "blockdct.inverse": (lambda x: BD.inverse(x, dmat, qtab),
+                             r(3, 8, 8)),
+        "blockdct.inverse_raster": (
+            lambda x: BD.inverse_raster(x, dmat, qtab, 16, 16),
+            r(2, 4, 8, 8)),
+        "qtransfer": (lambda x: qtransfer(x, mv, x), r(1, 32, 32)),
+        "roi_gather": (lambda x: roi_gather(x, idx, idx, region_px=8,
+                                            halo=2), r(1, 20, 20)),
+        "seq_sum": (seq_sum, r(2, 3, 4)),
+    }
+    for name, (call, x) in calls.items():
+        try:
+            call(x.clone().requires_grad_())
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[train] {name} ran under autograd")
+        call(x)
+    torch.cuda.synchronize()
+    print(f"[train] grad guard on CUDA: each of {len(calls)} wrappers "
+          f"({', '.join(calls)}) raised under autograd and ran without")
+
+
+def train_restart_in_child() -> None:
+    """(c) in a fresh process, its lines printed here."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--train-restart"], capture_output=True, text=True,
+                         timeout=900, env=env)
+    print(res.stdout, end="")
+    if res.returncode != 0:
+        raise RuntimeError(f"[train] restart failed:\n{res.stderr[-6000:]}")
+
+
+def phase_train(quick) -> dict:
+    """[train] (a)-(d); ``quick`` is [serving]'s quick-train serve run to
+    print beside the trained detector's (None when [serving] did not run).
+    Returns the launches of the detector's serve run."""
+    import torch
+    from repro_torch.models.detection import TinyDetectorConfig
+    det_cfg = TinyDetectorConfig()
+    t0 = time.perf_counter()
+    params, steps, _ = _train_detector(det_cfg)
+    launches = _serve_trained(params, steps, quick)
+    del params
+    torch.cuda.empty_cache()
+    _train_llama()
+    torch.cuda.empty_cache()
+    train_restart_in_child()
+    _check_grad_guard()
+    print(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def profile_in_child(tag: str) -> None:
     """``phase_profile`` of one path in a fresh process; its lines are
     printed here."""
@@ -3202,6 +3683,16 @@ def main(argv) -> int:
         phase_build()
         check_threaded_launch()
         phase_sharded(params, det_cfg)
+        return 0
+    if argv[:1] == ["--train-restart"]:
+        phase_train_restart()
+        return 0
+    if argv[:1] == ["--train"]:
+        # the training phase alone (with the card line and the build)
+        card = phase_card()
+        phase_build()
+        phase_train(None)
+        print(card)
         return 0
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
@@ -3260,8 +3751,9 @@ def main(argv) -> int:
     launches["sharded"] = phase_sharded(params, det_cfg)
     launches.update(phase_control(params, det_cfg))
     profile_in_child("control")
-    launches["serving"] = phase_serving(params, det_cfg)
+    launches["serving"], quick = phase_serving(params, det_cfg)
     profile_in_child("serving")
+    launches["train"] = phase_train(quick)
     del params
     launches["lm"] = phase_lm()
     profile_in_child("lm")

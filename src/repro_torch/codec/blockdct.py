@@ -86,6 +86,12 @@ def quantize_with_table(coefs, qtab):
     return torch.round(coefs / qtab)
 
 
+def quantize(coefs, quality):
+    """(round(coefs / table), table) for a quality factor."""
+    qtab = quant_table(quality, coefs.device)
+    return quantize_with_table(coefs, qtab), qtab
+
+
 def dequantize(qcoefs, qtab):
     return qcoefs * qtab
 

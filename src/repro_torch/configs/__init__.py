@@ -4,7 +4,7 @@ Each ``configs/<id>.py`` exposes ``build() -> ArchSpec`` with the
 reference's full configuration and ``build_reduced() -> ArchSpec`` for the
 CPU parity tests.  Only the dense LMs are ported; every other id of the
 reference raises ``NotImplementedError`` until its slice (ROADMAP.md
-queue 1).
+queues 3 and 4).
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ def get_arch(arch_id: str, reduced: bool = False) -> ArchSpec:
         raise ValueError(f"unknown architecture {arch_id!r}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queue 1); ported: "
+            f"{arch_id} is not ported yet (ROADMAP.md queues 3 and 4); ported: "
             f"{', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.build_reduced() if reduced else mod.build()

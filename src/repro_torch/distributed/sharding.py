@@ -25,7 +25,7 @@ collectives exist in the chunk computation);
 
 The reference's ``named_sharding`` and ``tree_shardings`` place model
 parameters along non-leading dimensions across devices, which only the LM
-zoo needs; they come with the MoE / Training slices.
+zoo needs; they come with the MoE slice (ROADMAP.md queue 4).
 """
 from __future__ import annotations
 

@@ -1,0 +1,1 @@
+from repro_torch.kernels.blockdct.ops import blockdct_quantize  # noqa: F401

@@ -87,8 +87,10 @@ _INVERSE_ARGTYPES = [_P, _P, _P, ctypes.c_int, ctypes.c_long, ctypes.c_int,
 
 
 def _check(name, x, dmat, qtab, frames: int) -> int:
-    """Raises on inputs the kernel does not take; returns the table
-    stride, 0 for one (8, 8) table or 64 for one a frame."""
+    """Raises on inputs the kernel does not take, and under autograd
+    (every entry, on either device, passes here first); returns the
+    table stride, 0 for one (8, 8) table or 64 for one a frame."""
+    build.refuse_grad("blockdct", x, dmat, qtab)
     if dmat.shape != (8, 8) or qtab.shape not in ((8, 8), (frames, 8, 8)):
         raise ValueError(f"dmat and qtab must be (8, 8), or qtab "
                          f"({frames}, 8, 8) with one table a frame; got "
@@ -179,3 +181,14 @@ def inverse(q, dmat, qtab):
         _check("q", q, dmat, qtab, q.shape[0])
         return inverse_plain(q, dmat, qtab)
     return inverse_raster(q[:, None], dmat, qtab, 8, 8)
+
+
+def blockdct_quantize(blocks, quality):
+    """blocks (nb, 8, 8) f32 at a JPEG quality -> (q, rec) as
+    :func:`forward_quant` with the DCT matrix and the quality's table
+    (``repro.kernels.blockdct.ops.blockdct_quantize``; the reference's
+    ``tile`` and ``interpret`` are TPU knobs with no counterpart)."""
+    from repro_torch.codec import blockdct as B   # it imports this module
+    return forward_quant(blocks.to(torch.float32),
+                         B.dct_matrix(8, blocks.device),
+                         B.quant_table(quality, blocks.device))

@@ -41,6 +41,24 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through kernel
+    ``name``: grad mode is on and a tensor argument requires grad.
+
+    No kernel has a backward, as no Pallas kernel of the reference has
+    one (``jax.grad`` through them fails).  The CUDA branch writes into a
+    fresh tensor through ctypes, so its result would carry no
+    ``grad_fn`` and the gradient would vanish silently; the CPU branch
+    would keep it.  Every wrapper calls this before choosing its branch,
+    so the CPU tests see what the card does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (neither has the reference's Pallas "
+            "kernel): call it on tensors that need no grad, or under "
+            "torch.no_grad()")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

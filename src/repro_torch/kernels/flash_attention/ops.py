@@ -74,8 +74,10 @@ _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Attention as :func:`flash_attention_plain`, in q's dtype.  CPU
     tensors take the plain version; CUDA tensors launch the kernel: q, k, v
-    contiguous, all f32 or all bf16, head dim 64 or 128."""
+    contiguous, all f32 or all bf16, head dim 64 or 128.  Raises under
+    autograd (:func:`repro_torch.kernels.build.refuse_grad`)."""
     _check(q, k, v, window)
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

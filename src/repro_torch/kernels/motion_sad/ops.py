@@ -150,7 +150,9 @@ def motion_sad(cur, ref, radius: int = 8, *, dtype=None,
     ``dtype`` is the storage dtype (None for f32, or torch.bfloat16);
     ``radius`` >= 0, as in the reference.  CPU tensors take the plain
     versions, at any radius; CUDA tensors launch the kernel, all T frames
-    at once, for radii up to MAX_RADIUS (ValueError above it)."""
+    at once, for radii up to MAX_RADIUS (ValueError above it).  Raises
+    under autograd."""
+    build.refuse_grad("motion_sad", cur, ref)
     if search not in SEARCHES:
         raise ValueError(f"unknown search strategy {search!r} "
                          f"(expected one of {SEARCHES})")

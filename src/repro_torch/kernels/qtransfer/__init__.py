@@ -1,0 +1,1 @@
+from repro_torch.kernels.qtransfer.ops import qtransfer  # noqa: F401

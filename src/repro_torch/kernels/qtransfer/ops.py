@@ -93,7 +93,8 @@ def qtransfer(anchor, mv, resid=None, *, edge: str = "pixel",
     storage dtype: None (the inputs' own, f32 on a kernel) or
     torch.bfloat16, in the block mode only.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted as ``qtransfer`` or
-    ``qtransfer_bf16``)."""
+    ``qtransfer_bf16``).  Raises under autograd."""
+    build.refuse_grad("qtransfer", anchor, mv, resid)
     if edge not in EDGES:
         raise ValueError(f"edge must be one of {EDGES}, got {edge!r}")
     store = build.storage_dtype(dtype)

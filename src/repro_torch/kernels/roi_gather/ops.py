@@ -52,6 +52,8 @@ def roi_gather_plain(planes, ry, rx, *, region_px: int, halo: int):
                    _start(rx, region_px, Wp, P)]
 
 
+roi_gather_ref = roi_gather_plain   # the reference's name for its oracle
+
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
@@ -60,8 +62,9 @@ _ARGTYPES = [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 def roi_gather(planes, ry, rx, *, region_px: int, halo: int):
     """Packed patch batch as :func:`roi_gather_plain`.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (f32 planes, int32
-    indices)."""
+    indices).  Raises under autograd."""
     P = _check(planes, ry, rx, region_px, halo)
+    build.refuse_grad("roi_gather", planes, ry, rx)
     if planes.device.type == "cpu":
         return roi_gather_plain(planes, ry, rx, region_px=region_px,
                                 halo=halo)

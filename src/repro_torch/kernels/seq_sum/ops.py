@@ -44,12 +44,13 @@ _ARGTYPES = [_P, ctypes.c_long, ctypes.c_int, ctypes.c_int, _P, _P]
 def seq_sum(x):
     """x (L, R, C) f32 -> (L,) as :func:`seq_sum_plain`.  CPU tensors take
     the plain version; CUDA tensors launch the kernel (counted as
-    ``seq_sum``), which takes R <= MAX_ROWS."""
+    ``seq_sum``), which takes R <= MAX_ROWS.  Raises under autograd."""
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"x must be a non-empty (L, R, C) grid, got "
                          f"{tuple(x.shape)}")
     if x.dtype != f32:
         raise TypeError(f"x has dtype {x.dtype}, expected {f32}")
+    build.refuse_grad("seq_sum", x)
     if x.device.type == "cpu":
         return seq_sum_plain(x)
     if x.device.type != "cuda":

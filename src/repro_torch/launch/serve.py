@@ -22,11 +22,14 @@ from repro_torch.core.bandwidth_controller import (BandwidthController,
 from repro_torch.core.hybrid_encoder import encode_hybrid
 from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models import detection as D
+from repro_torch.models.weights import (detector_params_from_jax,
+                                        detector_params_to_jax)
 from repro_torch.serving.runtime import EdgeRuntime
 from repro_torch.serving.scheduler import ServingConfig
 from repro_torch.sim.env import EnvConfig, MultiStreamEnv, high_state_dim
 from repro_torch.sim.network import TraceConfig, allocate, generate_trace
 from repro_torch.sim.video_source import generate_chunk, paper_stream_mix
+from repro_torch.train import checkpoint as CKPT
 from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
                                          init_state)
 
@@ -57,6 +60,19 @@ def quick_train(params: dict, det_cfg, streams, steps: int, *, device):
                                     device=device)
         params, opt, loss = fit_step(params, opt, det_cfg, ocfg, fr, bx, vl)
     return params, loss
+
+
+def restore_detector(ckpt_dir: str, like: dict, *, device) -> dict:
+    """The detector of the latest checkpoint under ``ckpt_dir``, in the
+    reference's layout on disk (``examples/train_detector.py``'s or
+    ``repro_torch.launch.train_detector``'s), as the port's params on
+    ``device``; ``like`` gives the names and shapes."""
+    step = CKPT.latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir!r}")
+    tree = CKPT.restore(ckpt_dir, step, detector_params_to_jax(like))
+    print(f"restored detector from {ckpt_dir} (step {step})")
+    return detector_params_from_jax(tree, device)
 
 
 def chunk_f1(boxes, scores, gt_boxes, gt_valid) -> np.ndarray:
@@ -92,10 +108,8 @@ def main(argv=None, *, device=None) -> dict:
     det_cfg = D.TinyDetectorConfig()
     params = D.init(torch.Generator().manual_seed(1), det_cfg, device=dev)
     if args.detector_ckpt:
-        raise NotImplementedError(
-            "--detector-ckpt needs train/checkpoint, which belongs to the "
-            "Training slice and is not ported")
-    if args.quick_train:
+        params = restore_detector(args.detector_ckpt, params, device=dev)
+    elif args.quick_train:
         print(f"quick-training detector ({args.quick_train} steps)...")
         params, loss = quick_train(params, det_cfg, streams,
                                    args.quick_train, device=dev)

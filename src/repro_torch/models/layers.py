@@ -17,7 +17,7 @@ kernel is ``repro_torch.kernels.flash_attention``.  The reference's
 sharding constraints and unroll scans for its dry run: the port runs on
 one device, eagerly, and has no counterpart.  ``layer_norm``, ``gelu_mlp``
 and the MoE layers wait for the slices that need them (ROADMAP.md
-queue 1).
+queues 3 and 4).
 """
 from __future__ import annotations
 
@@ -29,22 +29,49 @@ bf16 = torch.bfloat16
 NEG_INF = -1e30
 
 
+class _MmF32(torch.autograd.Function):
+    """The CUDA bf16 GEMM with an f32 result (``out_dtype``), which has no
+    derivative in PyTorch, made differentiable.  The backward is the one
+    autograd gives the CPU path, ``a.float() @ b.float()``: the f32
+    cotangent times the widened other operand, f32 sums, rounded to the
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
 def mm_f32(a, b):
     """``a @ b`` with an f32 result for bf16 ``a`` (..., M, K) and ``b``
     (K, N) or (..., K, N): XLA's ``preferred_element_type=f32``, exact
     products and f32 sums.  On CUDA one cuBLAS bf16 GEMM with an f32
-    output (``out_dtype``, which the CPU build lacks); on the CPU the
+    output (``out_dtype``, which the CPU build lacks), through
+    :class:`_MmF32` when autograd needs its gradient; on the CPU the
     operands are widened to f32, which gives the same exact products, as
     for f32 or mixed operands on either device."""
     if a.device.type != "cuda" or a.dtype != bf16 or b.dtype != bf16:
         return torch.matmul(a.float(), b.float())
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     lead = a.shape[:-1]
     if b.dim() == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
+        a2 = a.reshape(-1, a.shape[-1])
+        out = _MmF32.apply(a2, b) if grad \
+            else torch.mm(a2, b, out_dtype=f32)
         return out.reshape(*lead, b.shape[-1])
-    out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
-                    b.expand(*a.shape[:-2], *b.shape[-2:])
-                    .reshape(-1, *b.shape[-2:]), out_dtype=f32)
+    a3 = a.reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*a.shape[:-2], *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    out = _MmF32.apply(a3, b3) if grad else torch.bmm(a3, b3, out_dtype=f32)
     return out.reshape(*lead, b.shape[-1])
 
 

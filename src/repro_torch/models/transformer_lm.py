@@ -1,5 +1,6 @@
-"""Decoder-only LM family, dense serving path (port of
-``repro.models.transformer_lm``: prefill and KV-cache decode).
+"""Decoder-only LM family, dense path (port of
+``repro.models.transformer_lm``: forward, the training loss, prefill and
+KV-cache decode).
 
 One config covers the dense architectures: GQA with any kv-head count,
 RoPE over a fraction of the head dim (chatglm's half rotation), an
@@ -7,15 +8,17 @@ optional sliding window, optional q/k/v biases.  Parameters are a dict of
 tensors stacked over layers, in the reference's layouts: ``wq`` (L, d, H,
 Dh), ``wk``/``wv`` (L, d, Hk, Dh), ``wo`` (L, H, Dh, d), ``w1``/``w3`` (L,
 d, d_ff), ``w2`` (L, d_ff, d), ``embed`` (V, d), tied to the output.
-The layer loop is a Python loop over the stacked tensors; inference needs
-no ``remat``.
+The layer loop is a Python loop over the stacked tensors; under autograd
+with ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 
 ``attention_impl`` keeps the reference's two values, so a config maps
 across one to one: ``"pallas"`` runs the hand-written CUDA kernel
-(``repro_torch.kernels.flash_attention``), ``"xla"`` the plain
-``chunked_attention``/``swa_attention`` of ``layers``.  MoE layers, the
-training loss and ``active_param_count`` wait for later slices (ROADMAP.md
-queue 1).
+(``repro_torch.kernels.flash_attention``, which has no backward and
+raises under autograd, as the Pallas kernel cannot be differentiated),
+``"xla"`` the plain ``chunked_attention``/``swa_attention`` of
+``layers``.  MoE layers and ``active_param_count`` wait for the MoE slice
+(ROADMAP.md queue 4).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
@@ -49,10 +53,10 @@ class LMConfig:
     qkv_bias: bool = False                # qwen
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    remat: bool = True                    # training only; unread here
+    remat: bool = True                    # recompute layers in the backward
     attn_chunk: int = 1024
     q_block: int = 1024
-    aux_loss_coef: float = 0.01           # training only; unread here
+    aux_loss_coef: float = 0.01           # the MoE router loss's weight
     attention_impl: str = "xla"           # xla | pallas (the CUDA kernel)
     kv_cache_dtype: str = "bfloat16"      # bfloat16 | int8 (quantized cache)
 
@@ -60,7 +64,7 @@ class LMConfig:
         if self.moe is not None:
             raise NotImplementedError(
                 f"{self.name}: MoE layers are not ported yet (ROADMAP.md "
-                "queue 1, 'MoE: layers.moe_*, qwen2-moe, mixtral')")
+                "queue 4, 'MoE: layers.moe_*, qwen2-moe, mixtral')")
         if self.attention_impl not in ("xla", "pallas"):
             raise ValueError(f"attention_impl must be 'xla' or 'pallas', "
                              f"got {self.attention_impl!r}")
@@ -181,18 +185,32 @@ def _attn(cfg: LMConfig, p, x, positions):
     return out.to(x.dtype), (k, v)
 
 
+def _block(cfg: LMConfig, p, x, positions):
+    """One layer: (x after attention and FFN, (k, v))."""
+    h, kv = _attn(cfg, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), positions)
+    x = x + h
+    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+
+
 def _trunk(params, cfg: LMConfig, tokens, collect_cache: bool):
-    """Embedding and layers: (final hidden (B, S, d), cache_kv or None)."""
+    """Embedding and layers: (final hidden (B, S, d), cache_kv or None).
+    Under autograd with ``cfg.remat`` a layer keeps only its input for the
+    backward and runs again there; the values are the same."""
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(params, cfg, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    # one unbind a tensor: its backward stacks the layers' gradients once
+    names = list(params["blocks"])
+    layers = zip(*(params["blocks"][k].unbind(0) for k in names))
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
-        h, (k, v) = _attn(cfg, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                          positions)
-        x = x + h
-        x = x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    for values in layers:
+        p = dict(zip(names, values))
+        if remat:
+            x, (k, v) = checkpoint(_block, cfg, p, x, positions,
+                                   use_reentrant=False)
+        else:
+            x, (k, v) = _block(cfg, p, x, positions)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -208,6 +226,26 @@ def forward(params, cfg: LMConfig, tokens, *, collect_cache: bool = False):
     """
     x, cache = _trunk(params, cfg, tokens, collect_cache)
     return _logits(params, cfg, x), 0.0, cache
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+def softmax_xent(logits, labels):
+    """Mean cross-entropy: the log-sum-exp minus the gold logit.  The gold
+    logit is gathered; the reference's one-hot einsum sums it with zeros,
+    the same value."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(params, cfg: LMConfig, batch):
+    """Next-token loss of ``batch`` {"tokens", "labels"} (B, S) int, plus
+    the router loss's share (0 for a dense model)."""
+    logits, aux, _ = forward(params, cfg, batch["tokens"])
+    ce = softmax_xent(logits, batch["labels"])
+    return ce + cfg.aux_loss_coef * aux / max(cfg.n_layers, 1)
 
 
 # --------------------------------------------------------------------------

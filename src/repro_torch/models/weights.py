@@ -28,6 +28,24 @@ def detector_params_from_jax(params: dict, device=None) -> dict:
     return out
 
 
+def detector_params_to_jax(params: dict) -> dict:
+    """The port's TinyDetector params (OIHW convs) -> the reference's
+    layout as host f32 numpy arrays: ``conv{i}`` (c, cin, 3, 3) -> (3, 3,
+    cin, c), ``head`` (5, cin, 1, 1) -> (1, 1, cin, 5), the biases kept;
+    exact, the inverse of :func:`detector_params_from_jax`.  A detector
+    checkpoint written from it restores in either package."""
+    out = {}
+    for name, value in params.items():
+        a = value.detach().to("cpu", torch.float32).numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim != 1:
+            raise ValueError(f"{name}: expected a 4-D OIHW kernel or a 1-D "
+                             f"bias, got shape {a.shape}")
+        out[name] = np.ascontiguousarray(a)
+    return out
+
+
 def lm_params_from_jax(params: dict, device=None) -> dict:
     """The reference's decoder-LM params (nested dict of numpy arrays,
     bf16 or f32) -> the same nesting of bf16 tensors on the resolved

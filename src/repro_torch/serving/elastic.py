@@ -6,7 +6,7 @@
 on eviction and recovers it on re-admission.  ``remesh`` rebuilds a
 (data, model) mesh from the healthy groups' devices.  The reference's
 ``reshard_params`` places parameters by logical axes and comes with the
-MoE / Training slices.
+MoE slice (ROADMAP.md queue 4).
 
 Contract with the async dispatch plane (``serving/runtime.py``): an
 eviction re-homes both the evicted shard's QUEUED requests and its

@@ -1,1 +1,2 @@
-"""The optimiser of the control plane's agents (port of ``repro.train``)."""
+"""Training (port of ``repro.train``): AdamW, checkpoints, the loop,
+supervised restarts and gradient compression."""

@@ -595,10 +595,15 @@ def test_serve_main_matches_reference(weights, monkeypatch, capsys,
         assert abs(lat * 1e3 - float(r[5])) <= 0.05 + 1e-5 * lat * 1e3
 
 
-def test_serve_detector_ckpt_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Training slice"):
-        LS.main(["--detector-ckpt", "x", "--quick-train", "0"],
-                device="cpu")
+def test_serve_detector_ckpt_is_not_ported(tmp_path):
+    """The name is from when ``--detector-ckpt`` raised NotImplementedError.
+    The flag is ported now (``tests/test_torch_train.py`` serves a
+    reference checkpoint through it); this checks that a directory without
+    a checkpoint raises FileNotFoundError, as the reference's restore of
+    ``step_None`` does."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        LS.main(["--detector-ckpt", str(tmp_path / "x"), "--quick-train",
+                 "0"], device="cpu")
 
 
 # ---------------------------------------------- CUDA default, isolation

@@ -7,6 +7,11 @@
     python3 chip_smoke.py --sharded   (phases 1, 2, the worker-thread
                   check and 6b' alone; on several cards, a mesh over them)
     python3 chip_smoke.py --train     (phases 1, 2 and 6e alone)
+    python3 chip_smoke.py --moe       (phases 1, 2, the flash_attention
+                  sweep and [moe]'s two forms, and 7b alone)
+    python3 chip_smoke.py --moe-sharded   (phases 1, 2 and 7b's
+                  expert-parallel moe_block alone; on several cards, meshes
+                  over them)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -17,18 +22,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    blockdct forward at the anchor and LR shapes and its inverse,
    and with a table a frame, seq_sum at the codec's and the anchors'
    grids, qtransfer f32 at the quality transfer's and the motion
-   compensation's shapes and bf16, roi_gather, and seven flash_attention
+   compensation's shapes and bf16, roi_gather, and nine flash_attention
    forms:
    llama3.2-1B's and chatglm3-6B's heads, a 1024 window, cross Sq != Sk,
-   non-causal, ragged, f32 inputs) against its plain PyTorch version on
+   non-causal, ragged, f32 inputs, qwen2-moe's heads and mixtral's with
+   its 4096 window) against its plain PyTorch version on
    the card, at its path's shapes, with its time, the plain version's
    time and its bound (CUDA events, median of 20 timed runs after
    warm-up); the motion_sad, blockdct and qtransfer forms also with their
    device time a launch (a CUDA graph of 20 launches) and the wrapper's
    host time a call, the diamond forms timed twice in turns.  First four
    sweeps, checked and not timed: small bf16 flash_attention forms across
-   the kernel's tile edges (lengths 1 to 257, windows 127 to 129, Sq !=
-   Sk, GQA 1/4/16, B=3, D=64 and 128); the four motion_sad forms across
+   the kernel's tile edges (lengths 1 to 257, windows 127 to 129 and 4095
+   to 4097 over up to 8200 positions, Sq != Sk, GQA 1/4/8/16, B=3, D=64
+   and 128); the four motion_sad forms across
    shapes (16x16 to 480x848, nbx 1 to 53) and radii (0 to 16, and 47 and
    67) on integer, float, constant and 4-px periodic frames, plus a T=3
    batched call and a radius past the kernel's, which must raise; blockdct
@@ -115,6 +122,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    one decode step profiled in a process of their own; then
    chatglm3-6B's widths (2 of 28 layers, q/k/v biases on) prefill 1024
    tokens through the D=128 kernel, held against the plain path;
+7b. moe: qwen2-moe-a2.7b at full width and depth (14.0 B parameters, 60
+   experts top-4 and a shared expert, random weights drawn on the card)
+   serves two 4096-token requests: prefill through ``flash_attention``
+   (24 launches, the sorted expert dispatch in every layer), 32 greedy
+   decode steps (no kernel, the gathered experts); every layer's attention
+   held against the plain path, prefill + one decode step against the
+   forward over 4097 tokens (2 layers, no capacity drops), layer 0's MoE
+   block on the card against the CPU on 512 tokens, and the
+   expert-parallel ``moe_block`` on logical (batch x tensor) meshes of
+   the card (and over the cards where there are several) against the
+   local branch; one prefill and one decode step profiled in a process of
+   their own; then mixtral-8x22b at full width, 2 of its 56 layers: two
+   8192-token requests through the kernel's window form (window 4096, 2
+   launches), 32 decode steps past the window on the 4096-slot ring, the
+   same holds against ``swa_attention`` and the forward;
 8. one JSON line listing the kernels; 9. the JSON result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -960,7 +982,8 @@ def check_roi_gather(g) -> dict:
 
 # the flash_attention forms [kernels] holds against the plain version:
 # (label, B, H, Hk, Sq, Sk, D, causal, window, dtype); the first is the
-# llama3.2-1B prefill's shape (one request), the second chatglm3-6b's heads
+# llama3.2-1B prefill's shape (one request), the second chatglm3-6b's
+# heads, the last two the [moe] prefills' (two requests each)
 FLASH_FORMS = [
     ("llama3.2-1b heads", 1, 32, 8, 4096, 4096, 64, True, None, "bf16"),
     ("chatglm3-6b heads", 1, 32, 2, 2048, 2048, 128, True, None, "bf16"),
@@ -969,7 +992,17 @@ FLASH_FORMS = [
     ("non-causal", 1, 32, 8, 2048, 2048, 64, False, None, "bf16"),
     ("ragged S=1000", 1, 32, 8, 1000, 1000, 64, True, None, "bf16"),
     ("f32 inputs", 1, 32, 8, 1024, 1024, 64, True, None, "f32"),
+    ("qwen2-moe heads", 2, 16, 16, 4096, 4096, 128, True, None, "bf16"),
+    ("mixtral heads, window 4096", 2, 48, 8, 8192, 8192, 128, True, 4096,
+     "bf16"),
 ]
+# the path that runs each form at its very shape
+FLASH_FORM_PATHS = {"llama3.2-1b heads": "lm", "chatglm3-6b heads": "chatglm3",
+                    "qwen2-moe heads": "moe",
+                    "mixtral heads, window 4096": "mixtral"}
+# the plain version's f32 scores of a call above this many bytes go one
+# request at a time (mixtral's: 2 x 25.8 GB)
+FLASH_PLAIN_BYTES = 16 << 30
 # small forms that cross the bf16 design's tiles (128 q rows a block, 64
 # a consumer warpgroup, 128 keys a K/V tile), checked against the plain
 # version and not timed: (label, B, H, Hk, Sq, Sk, D, causal, window)
@@ -986,6 +1019,9 @@ FLASH_SWEEP = [
     *((f"GQA {16 // hk} D={d}", 1, 16, hk, 300, 300, d, True, None)
       for hk in (16, 4, 1) for d in (64, 128)),
     *((f"B=3 D={d}", 3, 8, 2, 257, 257, d, True, 200) for d in (64, 128)),
+    # mixtral's window past the tile edges of a long sequence
+    *((f"window {w} S={n} D=128", 1, 8, 1, n, n, 128, True, w)
+      for w, n in ((4096, 4225), (4095, 8200), (4097, 8200))),
 ]
 # the reference's absolute tolerances (tests/test_kernels.py:36), plus
 # 2^-8 of |value|: half a bf16 ulp, since above |o| = 4 one ulp of the
@@ -1049,11 +1085,12 @@ def check_flash_sweep(g) -> None:
                              "version:\n" + "\n".join(failed))
 
 
-def check_flash_attention(g) -> list[dict]:
-    """Each form against its plain version (``attention_ref`` in f32) on
-    the card, with its time, the plain version's, and the library's: one
-    ``scaled_dot_product_attention`` call on (B, H, S, D) views (a boolean
-    mask for the window form).  The bound counts the unmasked pairs."""
+def check_flash_attention(g, labels=None) -> list[dict]:
+    """Each form (or those named in ``labels``) against its plain version
+    (``attention_ref`` in f32) on the card, with its time, the plain
+    version's, and the library's: one ``scaled_dot_product_attention``
+    call on (B, H, S, D) views (a boolean mask for the window form).  The
+    bound counts the unmasked pairs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
@@ -1061,11 +1098,15 @@ def check_flash_attention(g) -> list[dict]:
     dev = torch.device("cuda")
     out = []
     for label, B, H, Hk, Sq, Sk, D, causal, window, dt in FLASH_FORMS:
+        if labels is not None and label not in labels:
+            continue
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v = _flash_inputs(g, B, H, Hk, Sq, Sk, D, dtype)
         kw = dict(causal=causal, window=window)
+        plain = _plain_by_request if 4 * B * H * Sq * Sk > FLASH_PLAIN_BYTES \
+            else flash_attention_plain
         o = flash_attention(q, k, v, **kw)
-        ref = flash_attention_plain(q, k, v, **kw)
+        ref = plain(q, k, v, **kw)
         torch.cuda.synchronize()
         if o.dtype != dtype or o.shape != q.shape:
             raise AssertionError(f"flash_attention {label}: {o.dtype} "
@@ -1080,7 +1121,8 @@ def check_flash_attention(g) -> list[dict]:
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
         # the wrapper's host time a call: checks, tensor maps, the launch
         host = host_ms(lambda: flash_attention(q, k, v, **kw))
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+        del ref
+        plain_ms = cuda_ms(lambda: plain(q, k, v, **kw),
                            reps=5, inner=1, warmup=1)
         q_pos = torch.arange(Sq, device=dev)[:, None]
         k_pos = torch.arange(Sk, device=dev)[None, :]
@@ -1109,9 +1151,18 @@ def check_flash_attention(g) -> list[dict]:
                   + (f" window={window}" if window else "")
                   + ("" if causal else " non-causal"),
             # the path that runs this very form, if one does
-            form_path={"llama3.2-1b heads": "lm",
-                       "chatglm3-6b heads": "chatglm3"}.get(label)))
+            form_path=FLASH_FORM_PATHS.get(label)))
     return out
+
+
+def _plain_by_request(q, k, v, **kw):
+    """The plain version one request at a time: the same values, and half
+    the f32 scores of the whole call at a time."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    return torch.cat([flash_attention_plain(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], **kw)
+                      for i in range(q.shape[0])])
 
 
 def _rel_err(a, b) -> float:
@@ -1120,50 +1171,33 @@ def _rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def _hold_logits(tag: str, got, ref, gate: bool = True) -> None:
-    """Logits within LM_REL_TOL of the reference's scale, and the same
+def _hold_logits(tag: str, got, ref, gate: bool = True,
+                 phase: str = "lm", tol: float = LM_REL_TOL) -> None:
+    """Logits within ``tol`` of the reference's scale, and the same
     greedy pick in every row, or picks whose reference logits differ by
     less than the measured max|d| (a near tie).  ``gate=False`` prints
-    the comparison only."""
+    the comparison only; ``phase`` names the line's phase."""
     import torch
     if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"[lm] {tag}: logits are not finite")
+        raise AssertionError(f"[{phase}] {tag}: logits are not finite")
     rel = _rel_err(got, ref)
     d = float((got.float() - ref.float()).abs().max())
     pick, pick_ref = got.argmax(-1), ref.argmax(-1)
     gap = (ref.gather(-1, pick_ref[..., None])
            - ref.gather(-1, pick[..., None])).abs().max()
     same = float((pick == pick_ref).float().mean())
-    print(f"[lm] {tag}: max|dlogit| {d:.4g} = {rel:.4g} of max|logit| "
+    print(f"[{phase}] {tag}: max|dlogit| {d:.4g} = {rel:.4g} of max|logit| "
           f"{float(ref.abs().max()):.4g} "
-          f"({f'tolerance {LM_REL_TOL}' if gate else 'not held'}); argmax "
+          f"({f'tolerance {tol}' if gate else 'not held'}); argmax "
           f"agrees in {same:.3f} of rows, largest gap at a differing pick "
           f"{float(gap):.3g}")
     if not gate:
         return
-    if not rel <= LM_REL_TOL:
-        raise AssertionError(f"[lm] {tag}: logits disagree ({rel})")
+    if not rel <= tol:
+        raise AssertionError(f"[{phase}] {tag}: logits disagree ({rel})")
     if float(gap) > d:
-        raise AssertionError(f"[lm] {tag}: greedy picks differ beyond a "
+        raise AssertionError(f"[{phase}] {tag}: greedy picks differ beyond a "
                              f"near tie ({float(gap)} > {d})")
-
-
-def _cache_from_prefill(cfg, kv, seq_len: int) -> dict:
-    """A bf16 cache of ``cache_len(cfg, seq_len)`` slots holding the
-    prefill's k and v at slots [0, S), the rest empty (slot_pos -1)."""
-    import torch
-    from repro_torch.models import transformer_lm as M
-    from repro_torch.models.params import init_params
-    k, v = kv
-    S = k.shape[2]
-    cache = init_params(None, M.init_cache_specs(cfg, k.shape[1], seq_len),
-                        k.device)
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
-    cache["slot_pos"].fill_(-1)
-    cache["slot_pos"][:S] = torch.arange(S, dtype=torch.int32,
-                                         device=k.device)
-    return cache
 
 
 def _expect_launches(where: str, expected: dict) -> None:
@@ -1237,7 +1271,7 @@ def phase_lm() -> dict:
           f"tokens/s); launches per prefill {launched}")
 
     seq_len = LM_SEQ + LM_DECODE
-    cache = _cache_from_prefill(cfg, kv, seq_len)
+    cache = M.cache_from_prefill(cfg, kv, seq_len)
     decode = make_infer_fn(arch, ShapeCase("decode", "decode",
                                            batch=LM_BATCH, seq_len=seq_len))
     tok = logits[:, -1].argmax(-1, keepdim=True).int()
@@ -1318,7 +1352,8 @@ def phase_lm() -> dict:
         full = M.forward(p, c, tokens1)[0]
         full_last = full[:, -1:].clone()
         del full
-        step, _ = M.decode_step(p, c, _cache_from_prefill(c, kvp, LM_SEQ + 1),
+        step, _ = M.decode_step(p, c,
+                                M.cache_from_prefill(c, kvp, LM_SEQ + 1),
                                 extra, LM_SEQ)
         _hold_logits(f"prefill {LM_SEQ} + decode vs forward {LM_SEQ + 1}, "
                      f"{n} layers", step, full_last, gate=gate)
@@ -1344,7 +1379,7 @@ def _attention_per_layer(params, cfg, tokens):
         h, _ = M._attn(cfg, p, xn, positions)
         rels.append(_rel_err(h, M._attn(xla, p, xn, positions)[0]))
         x = x + h
-        x = x + M._ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        x = x + M._ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))[0]
     return rels, M._logits(params, cfg, x[:, -1:])
 
 
@@ -1384,6 +1419,615 @@ def phase_chatglm3() -> dict:
     if not rel <= LM_REL_TOL:
         raise AssertionError(f"[lm] chatglm3 cache disagrees ({rel})")
     return launches
+
+
+# [moe]: qwen2-moe-a2.7b at full width and depth, and mixtral-8x22b at
+# full width and MIXTRAL_LAYERS of its 56 layers (all 56 are 281 GB in
+# bf16; two are 10.4 GB), each serving MOE_BATCH requests: prefill, then
+# greedy decode (mixtral's past its 4096-token window, on the ring cache)
+MOE_BATCH, MOE_DECODE = 2, 32
+QWEN_SEQ, MIXTRAL_SEQ, MIXTRAL_LAYERS = 4096, 8192, 2
+# one layer's MoE block on the card against the CPU on MOE_HELD_TOKENS
+# tokens: the top-k expert sets equal wherever the k-th routing
+# probability exceeds the next by more than MOE_MARGIN (the two devices'
+# f32 router products part by ~1e-7), and the outputs of the tokens routed
+# alike within MOE_TOL of max|out| (4 bf16 ulps: the expert GEMMs' f32
+# sums run in another order, so a bf16 output moves by an ulp now and then)
+MOE_HELD_TOKENS = 512
+MOE_MARGIN = 1e-4
+MOE_TOL = 4 * 2.0 ** -8
+# the expert-parallel branch against the local one, max|d| / max|out|: the
+# tensor shards' partial sums are rounded to bf16 before they are added,
+# and a partial can be several times the sum where the d_ff slices cancel
+# (measured 0.0144 at qwen2-moe's layer 0 on 2 x 4096 tokens; a lost
+# shard's partial reads 0.87 and more, tests/test_torch_moe.py)
+MOE_SHARD_TOL = 2.0 ** -5
+# prefill + decode against the forward, 2 layers, max|d| / max|logit|:
+# the CPU tests' bf16-model tolerance (tests/test_torch_moe.py), twice the
+# dense [lm]'s. In the random-init models the residual stream after layer
+# 0 is its attention output (max|x| 221 in qwen2-moe, 700 in mixtral,
+# against an FFN output of ~1), and layer 1's attention turns the
+# one-ulp difference between decode_attention and the kernel there into
+# 0.06 (qwen2-moe) and 0.11 (mixtral) of its output: measured 0.0489 and
+# 0.0783, against 0.0023 and 0.0044 through one layer (LM_REL_TOL) and
+# 0.0015 for mixtral with f32 activations (_moe_decode_gaps prints each)
+MOE_REL_TOL = 0.1
+# decode_attention over the prefill's cache (mixtral's ring) on the
+# forward's own q, k, v, max|d| / max against the exact f32 attention:
+# 2.5 bf16 ulps (measured 0.0022-0.0034; the kernel's 0.0022-0.0024)
+MOE_ATTN_TOL = 0.01
+MOE_MESHES = ((1, 2), (2, 2), (1, 4))      # (data, model): batch x tensor
+
+
+def _moe_arch(arch_id: str, n_layers=None):
+    """The arch with ``attention_impl="pallas"`` (and ``n_layers`` cut)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    base = get_arch(arch_id)
+    cfg = dataclasses.replace(base.cfg, attention_impl="pallas")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return dataclasses.replace(base, cfg=cfg)
+
+
+def _no_drops(cfg):
+    """``cfg`` whose sorted dispatch drops nothing (C = T): a token's
+    result then does not depend on the tokens around it, so prefill +
+    decode must give the forward's last position."""
+    import dataclasses
+    moe = dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, moe=moe)
+
+
+def _serve_moe(tag: str, arch, seq: int) -> dict:
+    """``materialize`` (random weights from seed 0, drawn on the card) and
+    ``make_infer_fn``: MOE_BATCH requests of ``seq`` tokens prefilled (a
+    warm-up, then three timed with CUDA events), each prefill launching
+    one ``flash_attention`` a layer and nothing else and taking the sorted
+    dispatch in every layer; the cache from the prefill
+    (``cache_from_prefill``), then MOE_DECODE greedy decode steps, which
+    launch no kernel and take the gathered path in every layer."""
+    import torch
+    from repro_torch.configs import ShapeCase
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_infer_fn, materialize
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as M
+    from repro_torch.models.params import param_bytes
+    cfg = arch.cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    case = ShapeCase("prefill", "prefill", batch=MOE_BATCH, seq_len=seq)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, batch = materialize(g, arch, case)
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name}, {cfg.n_layers} layers: "
+          f"{cfg.param_count():,} parameters "
+          f"({cfg.active_param_count():,} active), "
+          f"{param_bytes(M.param_specs(cfg)) / 2**30:.2f} GiB in bf16, drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s")
+    prefill = make_infer_fn(arch, case)
+    per_prefill = {"flash_attention": cfg.n_layers}
+    times = []
+    for i in range(4):
+        build.reset_launches()
+        L.reset_moe_branches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, kv = prefill(params, batch)
+        end.record()
+        end.synchronize()
+        launched = dict(build.LAUNCHES)
+        _expect_launches(f"[moe] {tag} prefill", per_prefill)
+        if dict(L.MOE_BRANCHES) != {"sorted": cfg.n_layers}:
+            raise AssertionError(f"[moe] {tag} prefill branches "
+                                 f"{dict(L.MOE_BRANCHES)}")
+        if i:
+            times.append(start.elapsed_time(end))
+    if logits.shape != (MOE_BATCH, 1, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[moe] {tag} prefill logits "
+                             f"{tuple(logits.shape)}")
+    prefill_ms = statistics.median(times)
+    print(f"[moe] {tag} prefill {MOE_BATCH}x{seq} tokens: "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms, median "
+          f"{prefill_ms:.2f} ms ({MOE_BATCH * seq / prefill_ms * 1e3:.0f} "
+          f"tokens/s); launches per prefill {launched}; MoE branches per "
+          f"prefill {dict(L.MOE_BRANCHES)}")
+
+    seq_len = seq + MOE_DECODE
+    cache = M.cache_from_prefill(cfg, kv, seq_len)
+    decode = make_infer_fn(arch, ShapeCase("decode", "decode",
+                                           batch=MOE_BATCH, seq_len=seq_len))
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    steps = []
+    build.reset_launches()
+    L.reset_moe_branches()
+    for i in range(MOE_DECODE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, cache = decode(params, cache,
+                                    {"tokens": tok, "pos": seq + i})
+        end.record()
+        tok = step_logits[:, -1].argmax(-1, keepdim=True).int()
+        steps.append((start, end))
+    torch.cuda.synchronize()
+    _expect_launches(f"[moe] {tag} decode", {})
+    # one token a request: T·k < E, the gathered path, at both models'
+    # widths (2·4 < 60, 2·2 < 8)
+    branch = "sorted" if MOE_BATCH * cfg.moe.top_k >= cfg.moe.n_experts \
+        else "gathered"
+    if dict(L.MOE_BRANCHES) != {branch: cfg.n_layers * MOE_DECODE}:
+        raise AssertionError(f"[moe] {tag} decode branches "
+                             f"{dict(L.MOE_BRANCHES)}")
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError(f"[moe] {tag} decode logits are not finite")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in steps)
+    ring = cache["k"].shape[2]
+    print(f"[moe] {tag} decode: {MOE_DECODE} greedy steps of {MOE_BATCH} "
+          f"requests, positions {seq}..{seq_len - 1} over a {ring}-slot "
+          f"{'ring ' if cfg.window else ''}cache: median {step_ms:.3f} ms a "
+          f"step ({MOE_BATCH / step_ms * 1e3:.1f} decoded tokens/s); no "
+          f"kernel launch, the {branch} path in all {cfg.n_layers} layers; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(params=params, tokens=batch["tokens"], logits=logits,
+                launched=launched, prefill_ms=prefill_ms, step_ms=step_ms)
+
+
+def _moe_input(params, cfg, tokens):
+    """Layer 0's FFN input (its MoE block's x) for ``tokens``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as M
+    import torch
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    p = M._layer(params, 0)
+    x = M._embed(params, cfg, tokens)
+    h, _ = M._attn(cfg, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), positions)
+    return L.rms_norm(x + h, p["ln2"], cfg.norm_eps)
+
+
+def _hold_moe_layers(tag: str, served: dict, cfg, seq: int) -> None:
+    """Every layer's attention, kernel vs plain on the kernel path's inputs
+    (``swa_attention`` for mixtral's window); then prefill + one decode
+    step against ``forward`` over seq + 1 tokens through the first
+    LM_HELD_LAYERS layers, with no capacity drops (:func:`_no_drops`,
+    :func:`_moe_decode_gaps`)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer_lm as M
+    params, tokens = served["params"], served["tokens"]
+    rels, tf_logits = _attention_per_layer(params, cfg, tokens)
+    if not torch.equal(tf_logits, served["logits"]):
+        raise AssertionError(f"[moe] {tag}: the per-layer loop is not the "
+                             "model's")
+    plain = "swa_attention" if cfg.window else "chunked_attention"
+    print(f"[moe] {tag} each layer's attention output, kernel vs {plain} on "
+          f"the kernel path's inputs (max|d| / max|value|, tolerance "
+          f"{LM_REL_TOL}): {', '.join(f'{r:.3g}' for r in rels)}")
+    if not max(rels) <= LM_REL_TOL:
+        raise AssertionError(f"[moe] {tag}: a layer's attention disagrees: "
+                             f"{rels}")
+    n = min(LM_HELD_LAYERS, cfg.n_layers)
+    held = _no_drops(dataclasses.replace(cfg, n_layers=n))
+    p = dict(params, blocks={k: v[:n] for k, v in params["blocks"].items()})
+    g = torch.Generator(device=tokens.device).manual_seed(5)
+    extra = torch.randint(0, cfg.vocab, (tokens.shape[0], 1), generator=g,
+                          device=tokens.device, dtype=torch.int32)
+    _moe_decode_gaps(tag, p, held, tokens, extra, seq)
+
+
+def _decode_vs_forward(p, cfg, tokens, extra, seq: int) -> dict:
+    """Prefill of ``tokens`` (seq positions), its cache and one decode
+    step of ``extra``, and the forward over all seq + 1 tokens: the
+    decode logits ("step"), the forward's last position ("last"), each
+    path's ``router_topk`` calls ("fwd", "pre", "dec") and the forward's
+    and the prefill's k, v ("kv_f", "kv"), the prefill's cache before the
+    decode step writes to it ("ring")."""
+    import torch
+    from repro_torch.models import transformer_lm as M
+    with _router_inputs() as fwd:
+        full, _, kv_f = M.forward(p, cfg, torch.cat([tokens, extra], 1),
+                                  collect_cache=True)
+    last = full[:, -1:].clone()
+    del full
+    with _router_inputs() as pre:
+        _, kv = M.prefill_step(p, cfg, tokens)
+    cache = M.cache_from_prefill(cfg, kv, seq + 1)
+    ring = {k: v.clone() for k, v in cache.items()}
+    with _router_inputs() as dec:
+        step, _ = M.decode_step(p, cfg, cache, extra, seq)
+    return dict(step=step, last=last, fwd=fwd, pre=pre, dec=dec, kv_f=kv_f,
+                kv=kv, ring=ring)
+
+
+def _exact_last(q, k, v, pos: int, window) -> "torch.Tensor":
+    """Position ``pos``'s attention (q's last row, (B, 1, H, D)) in f32
+    over the keys it sees: causal, within ``window``."""
+    B, _, H, D = q.shape
+    lo = 0 if window is None else max(0, pos - window + 1)
+    G = H // k.shape[2]
+    kf = k[:, lo:pos + 1].float().repeat_interleave(G, 2)
+    vf = v[:, lo:pos + 1].float().repeat_interleave(G, 2)
+    s = (q[:, -1].float()[:, None] * kf).sum(-1) * D ** -0.5   # (B, n, H)
+    return (s.softmax(1)[..., None] * vf).sum(1)[:, None]
+
+
+def _moe_decode_gaps(tag: str, p, held, tokens, extra, seq: int) -> None:
+    """Prefill + one decode step against the forward over seq + 1 tokens,
+    with no capacity drops.  Held: (a) the prefill's routing and k, v of
+    the seq tokens equal to the forward's, exactly; (b) its cache
+    (mixtral's 4096-slot ring) holding the forward's k, v at the positions
+    its ``slot_pos`` names, bit for bit; (c) each layer's
+    ``decode_attention`` over that cache, on the forward's q, k, v of the
+    last position, within MOE_ATTN_TOL of the exact f32 attention (the
+    kernel's error printed beside it); (d) the logits through the first
+    layer within LM_REL_TOL, through both within MOE_REL_TOL.  Printed:
+    the last token's experts by the two paths, and, layer by layer, how
+    far the decode step's last token is from the forward's after the
+    attention and after the FFN (the FFN also on the forward's own
+    input), and the same comparison in f32 weights and activations with
+    the plain attention."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as M
+    n, B, k = held.n_layers, tokens.shape[0], held.moe.top_k
+    gaps = []
+    for j in range(1, n + 1):
+        r = _decode_vs_forward(
+            dict(p, blocks={kk: v[:j] for kk, v in p["blocks"].items()}),
+            dataclasses.replace(held, n_layers=j), tokens, extra, seq)
+        gaps.append(_rel_err(r["step"], r["last"]))
+    for i in range(n):
+        idx_f = r["fwd"][i][2].reshape(B, seq + 1, k)[:, :seq].sort(-1)[0]
+        idx_p = r["pre"][i][2].reshape(B, seq, k).sort(-1)[0]
+        moved = int((idx_f != idx_p).any(-1).sum())
+        same = all(torch.equal(a[i], b[i][:, :seq])
+                   for a, b in zip(r["kv"], r["kv_f"]))
+        if moved or not same:
+            raise AssertionError(f"[moe] {tag} layer {i}: the prefill routes "
+                                 f"{moved} tokens otherwise than the forward"
+                                 f", k and v equal: {same}")
+    ring, (k_f, v_f) = r["ring"], r["kv_f"]
+    Sc = ring["k"].shape[2]
+    kept = torch.arange(max(0, seq - Sc), seq, device=tokens.device)
+    want = torch.full((Sc,), -1, dtype=torch.int32, device=tokens.device)
+    want[kept % Sc] = kept.int()
+    if not (torch.equal(ring["slot_pos"], want)
+            and torch.equal(ring["k"][:, :, kept % Sc], k_f[:, :, kept])
+            and torch.equal(ring["v"][:, :, kept % Sc], v_f[:, :, kept])):
+        raise AssertionError(f"[moe] {tag}: the cache from the prefill is not "
+                             "the forward's k, v at its slots")
+    print(f"[moe] {tag}: the prefill of {seq} tokens against the forward's "
+          f"first {seq}: routing and k, v equal in all {n} layers; its "
+          f"{Sc}-slot {'ring' if held.window else 'cache'} holds the "
+          f"forward's k, v of positions {int(kept[0])}..{seq - 1} bit for "
+          f"bit")
+    flips, margins = 0, []
+    for (xf, w, _), (xd, _, _) in zip(r["fwd"], r["dec"]):
+        xf = xf.reshape(B, -1, xf.shape[-1])[:, -1]
+        pf = torch.softmax(xf.float() @ w.float(), -1)
+        pd = torch.softmax(xd.float() @ w.float(), -1)
+        top_f = pf.sort(-1, descending=True)
+        flips += int((top_f[1][:, :k].sort(-1)[0]
+                      != pd.topk(k)[1].sort(-1)[0]).any(-1).sum())
+        margins += (top_f[0][:, k - 1] - top_f[0][:, k]).tolist()
+    print(f"[moe] {tag}: the last token's top-{k} experts, decode vs "
+          f"forward: {flips} of {len(margins)} (layer, request) decisions "
+          f"differ; the forward's smallest margin {min(margins):.3g}")
+    positions = torch.arange(seq + 1, dtype=torch.int32, device=tokens.device)
+    slot_pos = ring["slot_pos"].clone()
+    slot_pos[seq % Sc] = seq
+    # the forward's layers over every token (x) beside the decode step's
+    # for the last one (xd, over the prefill's cache)
+    x = M._embed(p, held, torch.cat([tokens, extra], 1))
+    xd = M._embed(p, held, extra)
+    attn = []
+    for i in range(n):
+        pi = M._layer(p, i)
+        xn = L.rms_norm(x, pi["ln1"], held.norm_eps)
+        q, kk, vv = M._qkv(held, pi, xn, positions)
+        exact = _exact_last(q, kk, vv, seq, held.window)
+        ck, cv = ring["k"][i].clone(), ring["v"][i].clone()
+        ck[:, seq % Sc], cv[:, seq % Sc] = kk[:, -1], vv[:, -1]
+        dec = L.decode_attention(q[:, -1:], ck, cv, cache_positions=slot_pos,
+                                 pos=seq, window=held.window)
+        ker = flash_attention(q, kk, vv, causal=True,
+                              window=held.window)[:, -1:]
+        attn.append((_rel_err(dec, exact), _rel_err(ker, exact)))
+        qd, kd, vd = M._qkv(held, pi, L.rms_norm(xd, pi["ln1"],
+                                                 held.norm_eps), positions[-1:])
+        ck[:, seq % Sc], cv[:, seq % Sc] = kd[:, 0], vd[:, 0]
+        od = L.decode_attention(qd, ck, cv, cache_positions=slot_pos,
+                                pos=seq, window=held.window)
+        h = M._attn(held, pi, xn, positions)[0]
+        hd = L.mm_f32(od.reshape(B, 1, -1),
+                      pi["wo"].reshape(-1, x.shape[-1])).to(xd.dtype)
+        x, xd = x + h, xd + hd
+        after_attn = (_rel_err(hd, h[:, -1:]), _rel_err(xd, x[:, -1:]))
+        xm = L.rms_norm(x, pi["ln2"], held.norm_eps)
+        f = M._ffn(held, pi, xm)[0]
+        fd = M._ffn(held, pi, L.rms_norm(xd, pi["ln2"], held.norm_eps))[0]
+        own = M._ffn(held, pi, xm[:, -1:])[0]
+        x, xd = x + f, xd + fd
+        print(f"[moe] {tag} layer {i}, the last token, decode vs forward "
+              f"(max|d| / max of the forward's): attention out "
+              f"{after_attn[0]:.3g}, residual after it {after_attn[1]:.3g}; "
+              f"FFN out {_rel_err(fd, f[:, -1:]):.3g}, on the forward's own "
+              f"input {_rel_err(own, f[:, -1:]):.3g}; residual after it "
+              f"{_rel_err(xd, x[:, -1:]):.3g}; max|x| "
+              f"{float(x[:, -1].abs().max()):.4g}, max|attention out| "
+              f"{float(h[:, -1].abs().max()):.4g}, max|FFN out| "
+              f"{float(f[:, -1].abs().max()):.4g}")
+    rebuilt = _rel_err(M._logits(p, held, xd), M._logits(p, held, x[:, -1:]))
+    print(f"[moe] {tag} each layer's attention of the last position on the "
+          f"forward's q, k, v against the exact f32 attention (max|d| / max, "
+          f"tolerance {MOE_ATTN_TOL}): decode_attention over the "
+          f"{'ring' if held.window else 'cache'} "
+          f"{', '.join(f'{a:.3g}' for a, _ in attn)}; the kernel "
+          f"{', '.join(f'{b:.3g}' for _, b in attn)}")
+    if not max(a for a, _ in attn) <= MOE_ATTN_TOL:
+        raise AssertionError(f"[moe] {tag}: decode_attention over the cache "
+                             f"disagrees: {attn}")
+    step, last = r["step"], r["last"]
+    del x, xd, q, kk, vv, ck, cv, r, f, xm
+    f32 = dataclasses.replace(held, dtype="float32", attention_impl="xla")
+    p32 = {name: ({kk: v.float() for kk, v in t.items()}
+                  if isinstance(t, dict) else t.float())
+           for name, t in p.items()}
+    r32 = _decode_vs_forward(p32, f32, tokens[:1], extra[:1], seq)
+    print(f"[moe] {tag}: prefill + decode vs forward in f32 weights and "
+          f"activations, the plain attention, request 0, {n} layers: "
+          f"{_rel_err(r32['step'], r32['last']):.4g} of max|logit|; the "
+          f"layer-by-layer rebuild above {rebuilt:.4g} (bf16)")
+    del p32, r32
+    print(f"[moe] {tag}: prefill + decode vs forward through 1..{n} layers "
+          f"(max|dlogit| / max|logit|, tolerances {LM_REL_TOL} for one, "
+          f"{MOE_REL_TOL} for two): {', '.join(f'{x:.4g}' for x in gaps)}")
+    if not gaps[0] <= LM_REL_TOL:
+        raise AssertionError(f"[moe] {tag}: one layer's prefill + decode vs "
+                             f"forward {gaps[0]}")
+    _hold_logits(f"{tag}: prefill {seq} + decode vs forward {seq + 1}, "
+                 f"{n} layers, no drops"
+                 + (f", a {Sc}-slot ring" if held.window else ""),
+                 step, last, phase="moe", tol=MOE_REL_TOL)
+
+
+class _router_inputs:
+    """Records (x, w_router, expert indices) of every ``router_topk`` call
+    in its block."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._topk, self.seen = L.router_topk, []
+
+        def spy(x, w, moe):
+            out = self._topk(x, w, moe)
+            self.seen.append((x, w, out[0]))
+            return out
+
+        L.router_topk = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.router_topk = self._topk
+
+
+def _hold_moe_block_cpu(tag: str, params, cfg, x) -> None:
+    """Layer 0's MoE block on the card against the same block on the CPU,
+    on the first MOE_HELD_TOKENS tokens of request 0."""
+    import torch
+    from repro_torch.models import layers as L
+    names = ("w_router", "we1", "we3", "we2")
+    w = [params["blocks"][k][0] for k in names]
+    xs = x[:1, :MOE_HELD_TOKENS]
+    out, aux = L.moe_block(xs, *w, cfg.moe)
+    xc, wc = xs.cpu(), [t.cpu() for t in w]
+    out_c, aux_c = L.moe_block(xc, *wc, cfg.moe)
+    k = cfg.moe.top_k
+    idx = L.router_topk(xs[0], w[0], cfg.moe)[0].sort(-1)[0].cpu()
+    idx_c = L.router_topk(xc[0], wc[0], cfg.moe)[0].sort(-1)[0]
+    probs = torch.softmax(xc[0].float() @ wc[0].float(), -1) \
+        .sort(-1, descending=True)[0]
+    sure = probs[:, k - 1] - probs[:, k] > MOE_MARGIN
+    same = (idx == idx_c).all(-1)
+    if not bool(same[sure].all()):
+        raise AssertionError(f"[moe] {tag}: expert sets differ where the "
+                             f"margin exceeds {MOE_MARGIN}")
+    o, oc = out[0].float().cpu(), out_c[0].float()
+    rel = float((o - oc)[same].abs().max() / oc.abs().max())
+    bits = float((o == oc)[same].float().mean())
+    print(f"[moe] {tag} layer 0 MoE block, card vs CPU on "
+          f"{MOE_HELD_TOKENS} tokens: expert sets equal for "
+          f"{int(same.sum())} of {MOE_HELD_TOKENS} tokens ({int(sure.sum())}"
+          f" with a top-{k} margin above {MOE_MARGIN}, all equal); outputs "
+          f"of those max|d| {rel:.3g} of max|out| (tolerance {MOE_TOL:.3g}),"
+          f" {bits:.4f} bit for bit; aux {float(aux):.6f} vs "
+          f"{float(aux_c):.6f}")
+    if not rel <= MOE_TOL:
+        raise AssertionError(f"[moe] {tag}: MoE block card vs CPU {rel}")
+    if not abs(float(aux) - float(aux_c)) <= 1e-5 * abs(float(aux_c)):
+        raise AssertionError(f"[moe] {tag}: router loss card vs CPU")
+
+
+def _moe_meshes() -> list:
+    """(label, shape, devices): MOE_MESHES as logical meshes of the card,
+    and over the cards where there are several."""
+    import torch
+    out = [(f"logical {a}x{b}", (a, b), [torch.device("cuda", 0)] * (a * b))
+           for a, b in MOE_MESHES]
+    n = torch.cuda.device_count()
+    for a, b in ((1, 2),) if 2 <= n < 4 else ((2, 2), (1, 4)) if n >= 4 \
+            else ():
+        out.append((f"{a}x{b} over {a * b} cards", (a, b),
+                    [torch.device("cuda", i) for i in range(a * b)]))
+    return out
+
+
+def _moe_expert_parallel(tag: str, params, cfg, x) -> None:
+    """``moe_block``'s expert-parallel branch on ``_moe_meshes`` (layer 0's
+    experts and MoE input, 2 x 4096 tokens) against its local branch on
+    each batch shard's tokens (a shard's capacity counts its own tokens,
+    so its drops are the local branch's on those tokens): the same routing
+    in every shard (exact), the output within MOE_SHARD_TOL, the aux the
+    batch shards' mean; each timed beside the local branch on all."""
+    import torch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.context import shard_ctx
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.models import layers as L
+    w = [params["blocks"][k][0]
+         for k in ("w_router", "we1", "we3", "we2")]
+    B, S, d = x.shape
+    by_shards = {}
+    for nb in sorted({shape[0] for _, shape, _ in _moe_meshes()}):
+        outs = [L.moe_block(xb, *w, cfg.moe) for xb in x.chunk(nb)]
+        by_shards[nb] = (torch.cat([o for o, _ in outs]),
+                         sum(float(a) for _, a in outs) / nb)
+    want = L.router_topk(x.reshape(-1, d), w[0], cfg.moe)[0] \
+        .reshape(B, S * cfg.moe.top_k)
+    local_ms = cuda_ms(lambda: L.moe_block(x, *w, cfg.moe), reps=5,
+                       inner=1, warmup=1)
+    for label, shape, devs in _moe_meshes():
+        mesh = make_mesh(shape, ("data", "model"), devices=devs)
+        L.reset_moe_branches()
+        for dev in set(devs):
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with _router_inputs() as seen, shard_ctx(mesh, SH.SINGLE_POD_RULES):
+            out, aux = L.moe_block(x, *w, cfg.moe)
+        for dev in set(devs):
+            torch.cuda.synchronize(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        routed = [r for _, _, r in seen]
+        n = shape[0] * shape[1]
+        if dict(L.MOE_BRANCHES) != {"expert_parallel": 1, "sorted": n}:
+            raise AssertionError(f"[moe] {label}: branches "
+                                 f"{dict(L.MOE_BRANCHES)}")
+        slices = want.reshape(shape[0], -1)
+        if len(routed) != n or not all(
+                torch.equal(r.reshape(-1).to(want.device),
+                            slices[i // shape[1]])
+                for i, r in enumerate(routed)):
+            raise AssertionError(f"[moe] {label}: routing differs from the "
+                                 "local branch")
+        local, aux_want = by_shards[shape[0]]
+        rel = _rel_err(out, local)
+        with shard_ctx(mesh, SH.SINGLE_POD_RULES):
+            ms = cuda_ms(lambda: L.moe_block(x, *w, cfg.moe), reps=5,
+                         inner=1, warmup=1)
+        print(f"[moe] {tag} expert-parallel {label} (data x model): routing "
+              f"exact in all {n} shards, max|d| {rel:.3g} of max|out| vs the"
+              f" local branch on the {shape[0]} batch shard(s) (tolerance "
+              f"{MOE_SHARD_TOL:.3g}), aux {float(aux):.6f} (their mean "
+              f"{aux_want:.6f}); {ms:.3f} ms against the local branch's "
+              f"{local_ms:.3f} ms on all {B}x{S} tokens; the first call "
+              f"{first_ms:.1f} ms on the host's clock, "
+              f"{_kept_gib(params):.3f} GiB of expert slices kept on other "
+              f"cards")
+        if not rel <= MOE_SHARD_TOL:
+            raise AssertionError(f"[moe] {label}: expert-parallel output "
+                                 f"{rel}")
+        if not abs(float(aux) - aux_want) <= 1e-5 * abs(aux_want):
+            raise AssertionError(f"[moe] {label}: aux {float(aux)} vs "
+                                 f"{aux_want}")
+
+
+def _kept_gib(params) -> float:
+    """GiB of the parameter copies that ``shard_map_compat`` keeps on the
+    stacked weights for shards on other devices."""
+    return sum(t.numel() * t.element_size()
+               for v in params["blocks"].values()
+               for _, t in getattr(v, "_mesh_copies", {}).values()) / 2**30
+
+
+def phase_moe() -> dict:
+    """[moe] (a) qwen2-moe-a2.7b at full width and depth (24 layers, 60
+    experts top-4 and a shared expert, 14.0 B parameters drawn on the
+    card): :func:`_serve_moe` at 2 x 4096 tokens, every layer's attention
+    and prefill + decode held (:func:`_hold_moe_layers`), layer 0's MoE
+    block against the CPU (:func:`_hold_moe_block_cpu`); (c) the
+    expert-parallel branch on layer 0 (:func:`_moe_expert_parallel`); (b)
+    mixtral-8x22b at full width, 2 of its 56 layers: 2 x 8192 tokens
+    through the kernel's window form, 32 decode steps past the window on
+    the 4096-slot ring, the same holds.  Returns the launches of one
+    prefill of each."""
+    import torch
+    t0 = time.perf_counter()
+    arch = _moe_arch("qwen2_moe_a2_7b")
+    served = _serve_moe("qwen2-moe", arch, QWEN_SEQ)
+    _hold_moe_layers("qwen2-moe", served, arch.cfg, QWEN_SEQ)
+    x = _moe_input(served["params"], arch.cfg, served["tokens"])
+    _hold_moe_block_cpu("qwen2-moe", served["params"], arch.cfg, x)
+    _moe_expert_parallel("qwen2-moe", served["params"], arch.cfg, x)
+    launches = {"moe": served["launched"]}
+    del served, x
+    torch.cuda.empty_cache()
+    arch = _moe_arch("mixtral_8x22b", MIXTRAL_LAYERS)
+    served = _serve_moe("mixtral", arch, MIXTRAL_SEQ)
+    _hold_moe_layers("mixtral", served, arch.cfg, MIXTRAL_SEQ)
+    launches["mixtral"] = served["launched"]
+    del served
+    torch.cuda.empty_cache()
+    print(f"[moe] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_moe_sharded() -> None:
+    """[moe] (c) alone: the expert-parallel branch on qwen2-moe-a2.7b's
+    layer 0 at full width (a one-layer cut, random weights from seed 0),
+    over logical meshes of the card and over the cards where there are
+    several (``--moe-sharded``)."""
+    import torch
+    from repro_torch.configs import ShapeCase
+    from repro_torch.launch.steps import materialize
+    arch = _moe_arch("qwen2_moe_a2_7b", 1)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params, batch = materialize(g, arch, ShapeCase(
+        "prefill", "prefill", batch=MOE_BATCH, seq_len=QWEN_SEQ))
+    x = _moe_input(params, arch.cfg, batch["tokens"])
+    _moe_expert_parallel("qwen2-moe", params, arch.cfg, x)
+
+
+def phase_profile_moe() -> None:
+    """One qwen2-moe-a2.7b prefill of 2x4096 tokens and one decode step
+    under torch.profiler, after an unprofiled warm-up of each, in a
+    process of its own (``--profile moe``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeCase
+    from repro_torch.launch.steps import materialize
+    from repro_torch.models import transformer_lm as M
+    arch = _moe_arch("qwen2_moe_a2_7b")
+    cfg = arch.cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params, batch = materialize(g, arch, ShapeCase(
+        "prefill", "prefill", batch=MOE_BATCH, seq_len=QWEN_SEQ))
+    _, kv = M.prefill_step(params, cfg, batch["tokens"])
+    cache = M.cache_from_prefill(cfg, kv, QWEN_SEQ + 4)
+    tok = batch["tokens"][:, -1:]
+    for i in range(2):
+        M.decode_step(params, cfg, cache, tok, QWEN_SEQ + i)
+    torch.cuda.synchronize()
+    for label, run in (
+            (f"moe prefill: qwen2-moe {MOE_BATCH}x{QWEN_SEQ} tokens",
+             lambda: M.prefill_step(params, cfg, batch["tokens"])),
+            (f"moe decode: qwen2-moe, one step of {MOE_BATCH} requests",
+             lambda: M.decode_step(params, cfg, cache, tok, QWEN_SEQ + 2))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _print_profile(label, prof, wall, rows_shown=8)
 
 
 def _streams(n: int = 2):
@@ -1585,7 +2229,7 @@ def phase_profile_lm() -> None:
     params, batch = materialize(g, arch, ShapeCase(
         "prefill_4k", "prefill", batch=LM_BATCH, seq_len=LM_SEQ))
     _, kv = M.prefill_step(params, cfg, batch["tokens"])
-    cache = _cache_from_prefill(cfg, kv, LM_SEQ + 4)
+    cache = M.cache_from_prefill(cfg, kv, LM_SEQ + 4)
     tok = batch["tokens"][:, -1:]
     for i in range(2):
         M.decode_step(params, cfg, cache, tok, LM_SEQ + i)
@@ -3654,6 +4298,24 @@ def phase_train(quick) -> dict:
     return launches
 
 
+def _print_kernel(k: dict) -> None:
+    """One [kernels] line: times, bound and host time of a kernel form."""
+    lib = "" if k["library_ms"] is None \
+        else f", library {k['library_ms'] * 1e3:.1f} us"
+    host = f", host {k['host_ms'] * 1e3:.1f} us a call" \
+        if "host_ms" in k else ""
+    device = f", device {k['device_ms'] * 1e3:.1f} us a launch (CUDA " \
+        "graph)" if "device_ms" in k else ""
+    turns = "" if len(k.get("ms_turns", ())) < 2 else (
+        "; again: " + ", ".join(
+            f"{k[key][1] * 1e3:.1f}" for key in
+            ("ms_turns", "device_ms_turns", "host_ms_turns")) + " us")
+    print(f"[kernels] {k['name']} ({k['shape']}): {k['ms'] * 1e3:.1f} us,"
+          f" plain {k['plain_ms'] * 1e3:.1f} us{lib}, bound "
+          f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){device}{host}"
+          f"{turns}")
+
+
 def profile_in_child(tag: str) -> None:
     """``phase_profile`` of one path in a fresh process; its lines are
     printed here."""
@@ -3694,9 +4356,42 @@ def main(argv) -> int:
         phase_train(None)
         print(card)
         return 0
+    if argv[:1] == ["--moe-sharded"]:
+        # the expert-parallel branch alone, e.g. on a machine with several
+        # cards
+        card = phase_card()
+        phase_build()
+        phase_moe_sharded()
+        print(card)
+        return 0
+    if argv[:1] == ["--moe"]:
+        # the MoE phase alone, with the card line, the build and its two
+        # flash_attention forms
+        card = phase_card()
+        phase_build()
+        check_flash_sweep(torch.Generator(device="cuda").manual_seed(1))
+        kernels = check_flash_attention(
+            torch.Generator(device="cuda").manual_seed(0),
+            labels=[k for k, v in FLASH_FORM_PATHS.items()
+                    if v in ("moe", "mixtral")])
+        launches = phase_moe()
+        profile_in_child("moe")
+        for k in kernels:
+            _print_kernel(k)
+            k["path"] = k["form_path"]
+            k["launches"] = k["form_launches"] = \
+                launches[k["path"]][k["name"]]
+        print(card)
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
             phase_profile_lm()
+        elif argv[1] == "moe":
+            phase_profile_moe()
         elif argv[1] == "batched":
             phase_profile_batched(params, det_cfg)
         elif argv[1] == "control":
@@ -3724,20 +4419,7 @@ def main(argv) -> int:
                *check_qtransfer(g), check_roi_gather(g),
                *check_flash_attention(g)]
     for k in kernels:
-        lib = "" if k["library_ms"] is None \
-            else f", library {k['library_ms'] * 1e3:.1f} us"
-        host = f", host {k['host_ms'] * 1e3:.1f} us a call" \
-            if "host_ms" in k else ""
-        device = f", device {k['device_ms'] * 1e3:.1f} us a launch (CUDA " \
-            "graph)" if "device_ms" in k else ""
-        turns = "" if len(k.get("ms_turns", ())) < 2 else (
-            "; again: " + ", ".join(
-                f"{k[key][1] * 1e3:.1f}" for key in
-                ("ms_turns", "device_ms_turns", "host_ms_turns")) + " us")
-        print(f"[kernels] {k['name']} ({k['shape']}): {k['ms'] * 1e3:.1f} us,"
-              f" plain {k['plain_ms'] * 1e3:.1f} us{lib}, bound "
-              f"{k['bound_ms'] * 1e3:.1f} us ({k['bound_by']}){device}{host}"
-              f"{turns}")
+        _print_kernel(k)
 
     check_threaded_launch()
 
@@ -3758,6 +4440,9 @@ def main(argv) -> int:
     launches["lm"] = phase_lm()
     profile_in_child("lm")
     launches["chatglm3"] = phase_chatglm3()
+    torch.cuda.empty_cache()
+    launches.update(phase_moe())
+    profile_in_child("moe")
 
     # each kernel's launches from the first path that runs it (the bf16
     # qtransfer is on no path: the reference reaches it only from its

@@ -2,9 +2,9 @@
 
 Each ``configs/<id>.py`` exposes ``build() -> ArchSpec`` with the
 reference's full configuration and ``build_reduced() -> ArchSpec`` for the
-CPU parity tests.  Only the dense LMs are ported; every other id of the
-reference raises ``NotImplementedError`` until its slice (ROADMAP.md
-queues 3 and 4).
+CPU parity tests.  The four decoder LMs are ported (llama3.2-1B,
+chatglm3-6B, qwen2-moe-a2.7B, mixtral-8x22B); the vision and diffusion
+ids raise ``NotImplementedError`` until their slice (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ ARCH_IDS = [
     "dit_xl2", "dit_b2",
     "resnet_152", "resnet_50", "convnext_b", "vit_b16",
 ]
-PORTED = ("llama3_2_1b", "chatglm3_6b")
+PORTED = ("llama3_2_1b", "chatglm3_6b", "qwen2_moe_a2_7b", "mixtral_8x22b")
 
 # dashes in the public ids map to underscores in module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -73,7 +73,7 @@ def get_arch(arch_id: str, reduced: bool = False) -> ArchSpec:
         raise ValueError(f"unknown architecture {arch_id!r}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queues 3 and 4); ported: "
+            f"{arch_id} is not ported yet (ROADMAP.md queue 3); ported: "
             f"{', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.build_reduced() if reduced else mod.build()

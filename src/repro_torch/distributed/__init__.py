@@ -1,6 +1,7 @@
-"""Stream sharding over a mesh of devices (port of ``repro.distributed``):
-the rule tables, a one-process mesh, ``shard_map`` for the specs stream
-sharding uses, and the stream-sharded encode, execute and round trip."""
+"""Sharding over a mesh of devices (port of ``repro.distributed``): the
+rule tables and placement by logical axes, a one-process mesh,
+``shard_map`` (the stream specs, the MoE block's parameter specs and its
+reductions), and the stream-sharded encode, execute and round trip."""
 from repro_torch.distributed.sharding import (  # noqa: F401
     AxisRules,
     SINGLE_POD_RULES,

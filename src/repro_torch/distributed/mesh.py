@@ -1,5 +1,6 @@
 """A mesh of devices in one process: the port's stand-in for
-``jax.sharding.Mesh``, ``NamedSharding`` and ``jax.make_mesh``.
+``jax.sharding.Mesh``, ``NamedSharding``, ``jax.make_mesh`` and
+``jax.device_put`` onto a sharding.
 
 One process owns every device of the mesh, as under JAX's single
 controller: stream-sharded work copies each shard's slice of the stream
@@ -9,6 +10,12 @@ same device more than once (a logical mesh): the CPU tests run 2 and 4
 shards that way, and a one-card machine 3 and 4.  The mesh holds exactly
 the devices its caller lists; only :func:`make_mesh` picks devices, and it
 takes the machine's CUDA devices or raises.
+
+:func:`device_put` lays a tensor out by a :class:`NamedSharding`: a
+:class:`Placed` holds, for every device position of the mesh, the slice
+of the tensor that the spec gives that position, on that device (a
+replicated dimension whole).  ``Placed.full()`` puts the slices back
+together: the same values as the tensor placed.
 """
 from __future__ import annotations
 
@@ -98,3 +105,72 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *,
     grid = np.empty(n, dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(shape), names)
+
+
+def _slices(sharding: NamedSharding, shape, coords) -> tuple[slice, ...]:
+    """The index of the slice at mesh ``coords`` (one index an axis)."""
+    mesh = sharding.mesh
+    at = dict(zip(mesh.axis_names, coords))
+    spec = list(sharding.spec) + [None] * (len(shape) - len(sharding.spec))
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {sharding.spec} has {len(spec)} entries "
+                         f"for a tensor of rank {len(shape)}")
+    out = []
+    for dim, entry in zip(shape, spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n = math.prod(mesh.shape[a] for a in axes)
+        if dim % n:
+            raise ValueError(f"dimension of size {dim} does not split {n} "
+                             f"ways ({sharding.spec})")
+        i = 0
+        for a in axes:
+            i = i * mesh.shape[a] + at[a]
+        k = dim // n
+        out.append(slice(i * k, (i + 1) * k))
+    return tuple(out)
+
+
+class Placed:
+    """A tensor laid out over a mesh: ``shards`` is an object array of the
+    mesh's shape, each element the slice of the tensor at that device
+    position, on that device (``index`` gives its slices)."""
+
+    def __init__(self, sharding: NamedSharding, shape, dtype, shards):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.shards = shards
+
+    def index(self, coords) -> tuple[slice, ...]:
+        return _slices(self.sharding, self.shape, coords)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (the mesh's first by default),
+        each element taken from the first mesh position holding it."""
+        mesh = self.sharding.mesh
+        dev = mesh.devices.flat[0] if device is None else _device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        done = set()
+        for coords in np.ndindex(*mesh.devices.shape):
+            idx = self.index(coords)
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in done:
+                done.add(key)
+                out[idx] = self.shards[coords].to(dev)
+        return out
+
+
+def device_put(x, sharding: NamedSharding) -> Placed:
+    """``x`` (a tensor, or host data) laid out by ``sharding``: each mesh
+    position's slice copied to its device (a view where the tensor is
+    already there).  Raises ``ValueError`` when a split dimension does
+    not divide over its axes."""
+    x = torch.as_tensor(x)
+    mesh = sharding.mesh
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for coords in np.ndindex(*mesh.devices.shape):
+        dev = mesh.devices[coords]
+        shards[coords] = x[_slices(sharding, x.shape, coords)].to(
+            dev, non_blocking=dev.type == "cuda")
+    return Placed(sharding, x.shape, x.dtype, shards)

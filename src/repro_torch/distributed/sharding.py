@@ -23,9 +23,11 @@ so data-parallel placement over the mesh is exact (no cross-stream
 collectives exist in the chunk computation);
 :mod:`repro_torch.distributed.stream_sharding` consumes these rules.
 
-The reference's ``named_sharding`` and ``tree_shardings`` place model
-parameters along non-leading dimensions across devices, which only the LM
-zoo needs; they come with the MoE slice (ROADMAP.md queue 4).
+``named_sharding`` and ``tree_shardings`` turn a parameter's logical axes
+into a :class:`repro_torch.distributed.mesh.NamedSharding` (dimensions
+that do not divide over their mesh axes replicated), which
+``mesh.device_put`` lays out across the mesh's devices
+(``serving/elastic.reshard_params``, ``train/checkpoint.restore``).
 """
 from __future__ import annotations
 
@@ -185,3 +187,23 @@ def validated_spec(spec: P, shape: Sequence[int], mesh) -> P:
     while out and out[-1] is None:
         out.pop()
     return P(*out)
+
+
+def named_sharding(mesh, logical_axes: Sequence[str | None],
+                   rules: AxisRules, shape: Sequence[int] | None = None):
+    """The placement of a tensor with these logical axes: its spec under
+    ``rules``, validated against ``shape`` when given."""
+    from repro_torch.distributed.mesh import NamedSharding
+    spec = logical_to_spec(logical_axes, rules)
+    if shape is not None:
+        spec = validated_spec(spec, shape, mesh)
+    return NamedSharding(mesh, spec)
+
+
+def tree_shardings(mesh, specs_tree, rules: AxisRules):
+    """A nested dict of ``ParamSpec`` -> the same nesting of
+    ``NamedSharding``."""
+    from repro_torch.models.params import ParamSpec
+    if isinstance(specs_tree, ParamSpec):
+        return named_sharding(mesh, specs_tree.axes, rules, specs_tree.shape)
+    return {k: tree_shardings(mesh, v, rules) for k, v in specs_tree.items()}

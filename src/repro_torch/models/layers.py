@@ -1,5 +1,5 @@
-"""Dense decoder-LM layers (port of the dense-LM part of
-``repro.models.layers``).
+"""Decoder-LM layers (port of the LM part of ``repro.models.layers``:
+norms, RoPE, attention, SwiGLU and the mixture of experts).
 
 Conventions, as in the reference:
 
@@ -15,11 +15,23 @@ Conventions, as in the reference:
 kernel is ``repro_torch.kernels.flash_attention``.  The reference's
 ``constrain``, ``scan_unroll`` and ``set_dryrun_unroll`` place XLA
 sharding constraints and unroll scans for its dry run: the port runs on
-one device, eagerly, and has no counterpart.  ``layer_norm``, ``gelu_mlp``
-and the MoE layers wait for the slices that need them (ROADMAP.md
-queues 3 and 4).
+one device, eagerly, and has no counterpart.  ``layer_norm`` and
+``gelu_mlp`` wait for the vision and diffusion zoo (ROADMAP.md queue 3).
+
+The MoE layers (``router_topk``, ``moe_sorted_dispatch``,
+``moe_gathered_experts``, ``moe_block``) are plain PyTorch, as the
+reference's are plain XLA: the expert products are cuBLAS bf16 GEMMs with
+f32 results (:func:`mm_f32`).  Where the reference leaves an order to
+XLA, the port fixes the one XLA's CPU backend takes: top-k ties go to the
+lower expert index, and a token's k weighted expert outputs are added in
+bf16 one at a time, in ascending expert order (the order of the sorted
+dispatch's scatter-add).  ``MOE_BRANCHES`` counts the branch each call
+takes.
 """
 from __future__ import annotations
+
+import collections
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -234,3 +246,192 @@ def swiglu(x, w1, w3, w2):
     g = mm_f32(x, w3)
     h = (F.silu(h) * g).to(x.dtype)
     return h @ w2  # the reference's bf16 result
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+# calls of each MoE branch: "sorted", "gathered" and "expert_parallel"
+# (the sharded block, one a call, besides its shards' local branches)
+MOE_BRANCHES: collections.Counter = collections.Counter()
+
+
+def reset_moe_branches() -> None:
+    MOE_BRANCHES.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    norm_topk: bool = True          # qwen renormalizes top-k probs
+
+
+def _topk(probs, k: int):
+    """``lax.top_k``: the k largest of each row, a tie going to the lower
+    index (a stable descending sort; ``torch.topk`` promises no order)."""
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
+def router_topk(x, w_router, moe: MoEConfig):
+    """Returns (expert_idx (T, k) int64, weights (T, k) in x's dtype,
+    the Switch-style load-balance loss, an f32 scalar)."""
+    logits = x.float() @ w_router.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = _topk(probs, moe.top_k)
+    if moe.norm_topk:
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(0)
+    # every addend is the same value, so the order of the adds (atomics
+    # on CUDA) cannot change the sum
+    ce = torch.zeros(moe.n_experts, dtype=f32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.full((idx.numel(),), 1.0 / idx.numel(),
+                                       dtype=f32, device=x.device))
+    aux = moe.n_experts * torch.sum(me * ce)
+    return idx, w.to(x.dtype), aux
+
+
+def capacity(T: int, moe: MoEConfig) -> int:
+    """The sorted dispatch's slots an expert, the reference's expression."""
+    k = moe.top_k
+    C = max(k, int(T * k * moe.capacity_factor / moe.n_experts + 0.999))
+    return min(C, T)
+
+
+def _swiglu_experts(buf, w1, w3, w2):
+    """(E, C, d) -> (E, C, d): each expert's SwiGLU on its slots, the
+    products bf16 with f32 results, rounded as the reference's."""
+    h = mm_f32(buf, w1)
+    g = mm_f32(buf, w3)
+    h = (F.silu(h) * g).to(buf.dtype)
+    return mm_f32(h, w2).to(buf.dtype)
+
+
+def _combine(contrib, order, idx):
+    """(T, d): each token's k rows of ``contrib`` ((T·k, d) in the
+    dispatch's sorted order) added in its dtype one at a time, starting
+    from 0, in ascending expert order: the order in which the reference's
+    ``zeros.at[tok].add(contrib)`` meets them on XLA's CPU backend, fixed
+    here on every device (CUDA's ``index_add_`` adds in no fixed order)."""
+    T, k = idx.shape
+    d = contrib.shape[-1]
+    by_slot = torch.empty_like(contrib)
+    by_slot[order] = contrib
+    by_slot = by_slot.reshape(T, k, d)
+    rank = torch.argsort(idx, dim=1)                        # (T, k)
+    by_expert = by_slot.gather(1, rank[..., None].expand(T, k, d))
+    out = torch.zeros((T, d), dtype=contrib.dtype, device=contrib.device)
+    for j in range(k):
+        out = out + by_expert[:, j]
+    return out
+
+
+def moe_sorted_dispatch(x, w_router, w1, w3, w2, moe: MoEConfig):
+    """Dropping MoE via sort-based dispatch into (E, C, d) capacity
+    buffers.  x: (T, d) tokens; w1/w3 (E, d, f), w2 (E, f, d).  Returns
+    (out (T, d), aux).  Tokens go into the buffers in (expert, token,
+    slot) order, the slots past C dropped; after the expert GEMMs each
+    token's k weighted outputs (zero where dropped) are added in bf16 in
+    ascending expert order (:func:`_combine`)."""
+    MOE_BRANCHES["sorted"] += 1
+    idx, w, aux = router_topk(x, w_router, moe)
+    T, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    C = capacity(T, moe)
+    eflat = idx.reshape(-1)                                 # (T*k,)
+    order = torch.argsort(eflat, stable=True)
+    sorted_e = eflat[order]
+    # bincount would read its maximum back to the host (a wait for the
+    # device a layer); integer adds come out the same in any order
+    counts = torch.zeros(E, dtype=eflat.dtype, device=x.device) \
+        .index_add_(0, eflat, torch.ones_like(eflat))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=x.device) - starts[sorted_e]
+    tok = order // k
+    # the slots past C are written to a spare slot C of the buffer, which
+    # no product reads, and read back as 0: no boolean mask, so no wait
+    # for the device
+    kept = (pos < C)[:, None]
+    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[sorted_e, torch.clamp(pos, max=C)] = x[tok]
+    y = _swiglu_experts(buf[:, :C], w1, w3, w2)
+    contrib = torch.where(kept, y[sorted_e, torch.clamp(pos, max=C - 1)], 0)
+    contrib = contrib * w.reshape(-1)[order][:, None]
+    return _combine(contrib, order, idx), aux
+
+
+def moe_gathered_experts(x, w_router, w1, w3, w2, moe: MoEConfig):
+    """Decode-shape MoE: each token through its k experts' weights,
+    gathered a token ((T, k, d, f) copies, as the reference's); the
+    combine an f32 sum over k, rounded once.  Returns (out (T, d), aux)."""
+    MOE_BRANCHES["gathered"] += 1
+    idx, w, aux = router_topk(x, w_router, moe)
+    T, d = x.shape
+    k = idx.shape[1]
+    xk = x[:, None, None, :].expand(T, k, 1, d)             # (T, k, 1, d)
+    h = mm_f32(xk, w1[idx])
+    g = mm_f32(xk, w3[idx])
+    h = (F.silu(h) * g).to(x.dtype)                         # (T, k, 1, f)
+    y = mm_f32(h, w2[idx])[:, :, 0]                         # (T, k, d) f32
+    out = (y * w.float()[..., None]).sum(1)
+    return out.to(x.dtype), aux
+
+
+def _moe_local(xf, w_router, w1, w3, w2, moe: MoEConfig):
+    """The sorted dispatch when T·k >= E (each expert's weights read
+    once), else the gathered path (only the k chosen experts read)."""
+    if xf.shape[0] * moe.top_k >= moe.n_experts:
+        return moe_sorted_dispatch(xf, w_router, w1, w3, w2, moe)
+    return moe_gathered_experts(xf, w_router, w1, w3, w2, moe)
+
+
+def moe_block(x, w_router, w1, w3, w2, moe: MoEConfig):
+    """x: (B, S, d) -> ((B, S, d), aux).
+
+    Under a ``shard_ctx`` whose rules give batch axes and a tensor axis
+    larger than 1, with B divisible over the batch axes, d_ff over the
+    tensor axis and B·S >= 4096 tokens (the reference's condition), the
+    block runs expert-parallel: a shard a mesh device
+    (:func:`repro_torch.distributed.shard_map_compat.shard_map_compat`),
+    each routing its slice of the batch through its slice of every
+    expert's d_ff; the shards' partial outputs are summed over the tensor
+    axis in bf16 and their router losses averaged over the batch axes on
+    the mesh's first device (the reference's ``psum`` and ``pmean``).
+    Otherwise the local branch.
+    """
+    from repro_torch.distributed.context import current_ctx
+    from repro_torch.distributed.shard_map_compat import shard_map_compat
+    from repro_torch.distributed.sharding import P
+
+    B, S, d = x.shape
+    ctx = current_ctx()
+    use_sm = (
+        ctx is not None
+        and len(ctx.batch_axes) > 0
+        and B % ctx.axis_size(ctx.batch_axes) == 0
+        and ctx.axis_size(ctx.tensor_axes) > 1
+        and w1.shape[-1] % ctx.axis_size(ctx.tensor_axes) == 0
+        and B * S >= 4096
+    )
+    if not use_sm:
+        out, aux = _moe_local(x.reshape(B * S, d), w_router, w1, w3, w2, moe)
+        return out.reshape(B, S, d), aux
+
+    MOE_BRANCHES["expert_parallel"] += 1
+    batch = ctx.batch_axes if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+    tensor = ctx.tensor_axes[0]
+
+    def body(xb, wr, a1, a3, a2):
+        Bl = xb.shape[0]
+        out, aux = _moe_local(xb.reshape(Bl * S, d), wr, a1, a3, a2, moe)
+        return out.reshape(Bl, S, d), aux
+
+    return shard_map_compat(
+        body, mesh=ctx.mesh,
+        in_specs=(P(batch), P(), P(None, None, tensor), P(None, None, tensor),
+                  P(None, tensor, None)),
+        out_specs=(P(batch), P()),
+        reduce=(("sum", tensor), ("mean", batch)),
+    )(x, w_router, w1, w3, w2)

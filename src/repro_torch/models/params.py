@@ -4,8 +4,8 @@ Each model declares its parameters once, as a nested dict of
 :class:`ParamSpec` (shape + logical axes + initialiser); ``init_params``
 makes real tensors from it.  The reference's ``abstract_params`` feeds
 its sharded dry run only and has no counterpart here.  ``axes`` are kept
-as the reference declares them: they name the dimension a sharded slice
-would split, and nothing in the port reads them yet.
+as the reference declares them: the logical axis of each dimension, which
+``distributed.sharding.tree_shardings`` maps onto a mesh.
 """
 from __future__ import annotations
 

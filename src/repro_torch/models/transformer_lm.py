@@ -1,13 +1,18 @@
-"""Decoder-only LM family, dense path (port of
+"""Decoder-only LM family: llama3, chatglm3, qwen2-moe, mixtral (port of
 ``repro.models.transformer_lm``: forward, the training loss, prefill and
 KV-cache decode).
 
-One config covers the dense architectures: GQA with any kv-head count,
+One config covers the four architectures: GQA with any kv-head count,
 RoPE over a fraction of the head dim (chatglm's half rotation), an
-optional sliding window, optional q/k/v biases.  Parameters are a dict of
+optional sliding window (mixtral), optional q/k/v biases, and an optional
+MoE FFN with a sigmoid-gated shared expert (qwen: 60 routed experts top-4
+and a shared one; mixtral: 8 routed top-2).  Parameters are a dict of
 tensors stacked over layers, in the reference's layouts: ``wq`` (L, d, H,
 Dh), ``wk``/``wv`` (L, d, Hk, Dh), ``wo`` (L, H, Dh, d), ``w1``/``w3`` (L,
-d, d_ff), ``w2`` (L, d_ff, d), ``embed`` (V, d), tied to the output.
+d, d_ff), ``w2`` (L, d_ff, d) or the experts' ``w_router`` (L, d, E),
+``we1``/``we3`` (L, E, d, d_ff), ``we2`` (L, E, d_ff, d) and the shared
+``ws1``/``ws3``/``ws2``, ``w_shared_gate`` (L, d, 1); ``embed`` (V, d),
+tied to the output.
 The layer loop is a Python loop over the stacked tensors; under autograd
 with ``cfg.remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
@@ -17,20 +22,19 @@ across one to one: ``"pallas"`` runs the hand-written CUDA kernel
 (``repro_torch.kernels.flash_attention``, which has no backward and
 raises under autograd, as the Pallas kernel cannot be differentiated),
 ``"xla"`` the plain ``chunked_attention``/``swa_attention`` of
-``layers``.  MoE layers and ``active_param_count`` wait for the MoE slice
-(ROADMAP.md queue 4).
+``layers``.  The layers' router losses are summed into ``forward``'s aux.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.params import param_count, spec
+from repro_torch.models.params import init_params, param_count, spec
 
 f32 = torch.float32
 
@@ -48,7 +52,7 @@ class LMConfig:
     rope_fraction: float = 1.0
     rope_theta: float = 500000.0
     window: Optional[int] = None          # SWA window (mixtral)
-    moe: Optional[Any] = None             # the MoE slice
+    moe: Optional[L.MoEConfig] = None
     d_ff_shared: int = 0                  # qwen shared-expert width
     qkv_bias: bool = False                # qwen
     norm_eps: float = 1e-5
@@ -61,10 +65,6 @@ class LMConfig:
     kv_cache_dtype: str = "bfloat16"      # bfloat16 | int8 (quantized cache)
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md "
-                "queue 4, 'MoE: layers.moe_*, qwen2-moe, mixtral')")
         if self.attention_impl not in ("xla", "pallas"):
             raise ValueError(f"attention_impl must be 'xla' or 'pallas', "
                              f"got {self.attention_impl!r}")
@@ -84,6 +84,14 @@ class LMConfig:
 
     def param_count(self) -> int:
         return param_count(param_specs(self))
+
+    def active_param_count(self) -> int:
+        """6·N_active·D convention: MoE counts only top-k + shared experts."""
+        if self.moe is None:
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.d_ff
+        inactive = (self.moe.n_experts - self.moe.top_k) * per_expert
+        return self.param_count() - self.n_layers * inactive
 
 
 # --------------------------------------------------------------------------
@@ -112,14 +120,41 @@ def param_specs(cfg: LMConfig) -> dict:
                          init="zeros")
         blk["bv"] = spec((Ln, Hk, Dh), (None, "tensor", None), dtype=dt,
                          init="zeros")
-    blk.update({
-        "w1": spec((Ln, d, cfg.d_ff), (None, "fsdp", "tensor"), dtype=dt,
-                   init="fan_in"),
-        "w3": spec((Ln, d, cfg.d_ff), (None, "fsdp", "tensor"), dtype=dt,
-                   init="fan_in"),
-        "w2": spec((Ln, cfg.d_ff, d), (None, "tensor", "fsdp"), dtype=dt,
-                   init="fan_in"),
-    })
+    if cfg.moe is None:
+        blk.update({
+            "w1": spec((Ln, d, cfg.d_ff), (None, "fsdp", "tensor"), dtype=dt,
+                       init="fan_in"),
+            "w3": spec((Ln, d, cfg.d_ff), (None, "fsdp", "tensor"), dtype=dt,
+                       init="fan_in"),
+            "w2": spec((Ln, cfg.d_ff, d), (None, "tensor", "fsdp"), dtype=dt,
+                       init="fan_in"),
+        })
+    else:
+        E = cfg.moe.n_experts
+        blk.update({
+            "w_router": spec((Ln, d, E), (None, "fsdp", None), dtype=dt,
+                             init="fan_in"),
+            "we1": spec((Ln, E, d, cfg.d_ff),
+                        (None, "expert", "fsdp", "tensor"), dtype=dt,
+                        init="fan_in"),
+            "we3": spec((Ln, E, d, cfg.d_ff),
+                        (None, "expert", "fsdp", "tensor"), dtype=dt,
+                        init="fan_in"),
+            "we2": spec((Ln, E, cfg.d_ff, d),
+                        (None, "expert", "tensor", "fsdp"), dtype=dt,
+                        init="fan_in"),
+        })
+        if cfg.d_ff_shared:
+            blk.update({
+                "ws1": spec((Ln, d, cfg.d_ff_shared), (None, "fsdp", "tensor"),
+                            dtype=dt, init="fan_in"),
+                "ws3": spec((Ln, d, cfg.d_ff_shared), (None, "fsdp", "tensor"),
+                            dtype=dt, init="fan_in"),
+                "ws2": spec((Ln, cfg.d_ff_shared, d), (None, "tensor", "fsdp"),
+                            dtype=dt, init="fan_in"),
+                "w_shared_gate": spec((Ln, d, 1), (None, "fsdp", None),
+                                      dtype=dt, init="fan_in"),
+            })
     return {
         "embed": spec((cfg.vocab, d), ("tensor", None), dtype=dt),
         "blocks": blk,
@@ -146,8 +181,17 @@ def _logits(params, cfg: LMConfig, x):
 # Forward
 # --------------------------------------------------------------------------
 def _ffn(cfg: LMConfig, p, x):
-    """Per-layer dense FFN; p holds this layer's weights."""
-    return L.swiglu(x, p["w1"], p["w3"], p["w2"])
+    """Per-layer FFN, (out, router loss); p holds this layer's weights.
+    A dense layer's loss is 0.0."""
+    if cfg.moe is None:
+        return L.swiglu(x, p["w1"], p["w3"], p["w2"]), 0.0
+    out, aux = L.moe_block(x, p["w_router"], p["we1"], p["we3"], p["we2"],
+                           cfg.moe)
+    if cfg.d_ff_shared:
+        sh = L.swiglu(x, p["ws1"], p["ws3"], p["ws2"])
+        gate = torch.sigmoid(x.float() @ p["w_shared_gate"].float())
+        out = out + (sh.float() * gate).to(x.dtype)
+    return out, aux
 
 
 def _qkv(cfg: LMConfig, p, x, positions):
@@ -186,14 +230,16 @@ def _attn(cfg: LMConfig, p, x, positions):
 
 
 def _block(cfg: LMConfig, p, x, positions):
-    """One layer: (x after attention and FFN, (k, v))."""
+    """One layer: (x after attention and FFN, (k, v), router loss)."""
     h, kv = _attn(cfg, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), positions)
     x = x + h
-    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+    h, aux = _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + h, kv, aux
 
 
 def _trunk(params, cfg: LMConfig, tokens, collect_cache: bool):
-    """Embedding and layers: (final hidden (B, S, d), cache_kv or None).
+    """Embedding and layers: (final hidden (B, S, d), cache_kv or None,
+    the layers' router losses summed in layer order, 0.0 if dense).
     Under autograd with ``cfg.remat`` a layer keeps only its input for the
     backward and runs again there; the values are the same."""
     S = tokens.shape[1]
@@ -204,28 +250,32 @@ def _trunk(params, cfg: LMConfig, tokens, collect_cache: bool):
     names = list(params["blocks"])
     layers = zip(*(params["blocks"][k].unbind(0) for k in names))
     ks, vs = [], []
+    aux = 0.0
     for values in layers:
         p = dict(zip(names, values))
         if remat:
-            x, (k, v) = checkpoint(_block, cfg, p, x, positions,
-                                   use_reentrant=False)
+            x, (k, v), a = checkpoint(_block, cfg, p, x, positions,
+                                      use_reentrant=False)
         else:
-            x, (k, v) = _block(cfg, p, x, positions)
+            x, (k, v), a = _block(cfg, p, x, positions)
+        aux = aux + a
         if collect_cache:
             ks.append(k)
             vs.append(v)
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache else None)
+    cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, cache, aux
 
 
 def forward(params, cfg: LMConfig, tokens, *, collect_cache: bool = False):
     """Full-sequence forward.  tokens: (B, S) int.
 
-    Returns (logits (B, S, V) f32, aux_loss, cache_kv): aux_loss is 0.0
-    (a dense model has no router loss); cache_kv is (k, v), each (L, B, S,
-    Hk, Dh) after RoPE, if ``collect_cache`` else None.
+    Returns (logits (B, S, V) f32, aux_loss, cache_kv): aux_loss is the
+    layers' router losses summed (an f32 scalar; 0.0 for a dense model);
+    cache_kv is (k, v), each (L, B, S, Hk, Dh) after RoPE, if
+    ``collect_cache`` else None.
     """
-    x, cache = _trunk(params, cfg, tokens, collect_cache)
-    return _logits(params, cfg, x), 0.0, cache
+    x, cache, aux = _trunk(params, cfg, tokens, collect_cache)
+    return _logits(params, cfg, x), aux, cache
 
 
 # --------------------------------------------------------------------------
@@ -242,7 +292,8 @@ def softmax_xent(logits, labels):
 
 def loss_fn(params, cfg: LMConfig, batch):
     """Next-token loss of ``batch`` {"tokens", "labels"} (B, S) int, plus
-    the router loss's share (0 for a dense model)."""
+    ``aux_loss_coef`` times the mean router loss a layer (0 for a dense
+    model)."""
     logits, aux, _ = forward(params, cfg, batch["tokens"])
     ce = softmax_xent(logits, batch["labels"])
     return ce + cfg.aux_loss_coef * aux / max(cfg.n_layers, 1)
@@ -276,8 +327,38 @@ def init_cache_specs(cfg: LMConfig, batch: int, seq_len: int) -> dict:
     return specs
 
 
+def cache_from_prefill(cfg: LMConfig, kv, seq_len: int) -> dict:
+    """The decode cache of ``init_cache_specs(cfg, B, seq_len)`` holding a
+    prefill's k and v ((L, B, S, Hk, Dh) each, from :func:`prefill_step`):
+    position p in the slot :func:`decode_step` writes it to (p mod the
+    ring's length for a window config, else p), the latest positions
+    kept when a window config's prefill is longer than its ring; the other
+    slots empty (``slot_pos`` -1).  An int8 cache takes each position's
+    quantised values and scales, as decode writes them.  (The reference
+    has no such step: its decode cells start from an empty cache.)"""
+    k, v = kv
+    S = k.shape[2]
+    Sc = cache_len(cfg, seq_len)
+    if cfg.window is None and S > Sc:
+        raise ValueError(f"a prefill of {S} positions does not fit a cache "
+                         f"of {Sc}")
+    cache = init_params(None, init_cache_specs(cfg, k.shape[1], seq_len),
+                        k.device)
+    pos = torch.arange(max(S - Sc, 0), S, device=k.device)
+    slot = pos % Sc
+    for name, t in (("k", k), ("v", v)):
+        t = t[:, :, pos]
+        if cfg.kv_cache_dtype == "int8":
+            t, scale = _quantize_kv(t)
+            cache[f"{name}_scale"][:, :, slot] = scale
+        cache[name][:, :, slot] = t.to(cache[name].dtype)
+    cache["slot_pos"].fill_(-1)
+    cache["slot_pos"][slot] = pos.to(torch.int32)
+    return cache
+
+
 def _quantize_kv(x):
-    """(B, 1, Hk, D) -> (int8 values, (B, 1, Hk) f32 scales)."""
+    """(..., D) -> (int8 values, (...) f32 scales): one scale a vector."""
     xf = x.float()
     scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
@@ -324,7 +405,7 @@ def decode_step(params, cfg: LMConfig, cache: dict, tokens, pos):
                                window=cfg.window)
         x = x + L.mm_f32(o.reshape(B, 1, -1),
                          p["wo"].reshape(-1, d)).to(x.dtype)
-        x = x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        x = x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))[0]
     return _logits(params, cfg, x), cache
 
 
@@ -335,5 +416,5 @@ def prefill_step(params, cfg: LMConfig, tokens):
     state onto the vocabulary, the same sums for that row, without the
     (B, S, V) f32 tensor (4.2 GB for two 4096-token llama3.2-1B requests).
     """
-    x, cache = _trunk(params, cfg, tokens, True)
+    x, cache, _ = _trunk(params, cfg, tokens, True)
     return _logits(params, cfg, x[:, -1:]), cache

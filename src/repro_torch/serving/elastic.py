@@ -4,9 +4,8 @@
 
 ``ElasticPool`` tracks healthy device groups; the runtime fails a group
 on eviction and recovers it on re-admission.  ``remesh`` rebuilds a
-(data, model) mesh from the healthy groups' devices.  The reference's
-``reshard_params`` places parameters by logical axes and comes with the
-MoE slice (ROADMAP.md queue 4).
+(data, model) mesh from the healthy groups' devices, and
+``reshard_params`` lays parameters out on it by their logical axes.
 
 Contract with the async dispatch plane (``serving/runtime.py``): an
 eviction re-homes both the evicted shard's QUEUED requests and its
@@ -22,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.distributed.mesh import Mesh
+from repro_torch.distributed.mesh import Mesh, device_put
+from repro_torch.distributed.sharding import make_axis_rules, tree_shardings
 
 
 @dataclasses.dataclass
@@ -123,3 +123,16 @@ def remesh(pool: ElasticPool, n_model: int = 1, *, devices=None) -> Mesh:
     grid = np.empty(n_data * n_model, dtype=object)
     grid[:] = sel[:n_data * n_model]
     return Mesh(grid.reshape(n_data, n_model), ("data", "model"))
+
+
+def reshard_params(params, specs_tree, mesh: Mesh, multi_pod: bool = False):
+    """``params`` (a nested dict of tensors) laid out on ``mesh`` by their
+    specs' logical axes under the baseline rules (post-failure
+    continuation): the same nesting of ``mesh.Placed``."""
+    shardings = tree_shardings(mesh, specs_tree, make_axis_rules(multi_pod))
+
+    def put(p, sh):
+        if isinstance(p, dict):
+            return {k: put(v, sh[k]) for k, v in p.items()}
+        return device_put(p, sh)
+    return put(params, shardings)

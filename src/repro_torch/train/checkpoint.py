@@ -15,9 +15,11 @@ on.
 Restore: into the structure of a like-tree, each leaf taking the
 like-leaf's dtype, shape and device (a numpy like-leaf gives a numpy
 array).  A void record restores as bfloat16, where the reference's
-``jax.device_put`` rejects it (ROADMAP.md section 3).  The reference's
-elastic restore onto other shardings waits for the placement of
-parameters by logical axes (ROADMAP.md queue 4).
+``jax.device_put`` rejects it (ROADMAP.md section 3).  With
+``shardings`` (a matching tree of ``NamedSharding``, e.g. from
+``distributed.sharding.tree_shardings``) each leaf is laid out across its
+mesh instead (``distributed.mesh.device_put``): a cross-mesh elastic
+restore.
 """
 from __future__ import annotations
 
@@ -163,18 +165,25 @@ def _restore_leaf(arr: np.ndarray, like, key: str):
 def restore(ckpt_dir: str, step: int, like_tree, *, shardings=None):
     """Restore step ``step`` into the structure of ``like_tree``.
 
-    Raises ``KeyError`` when the checkpoint lacks a key of the like-tree
-    and ``ValueError`` on a shape mismatch; ``shardings`` other than None
-    raises ``NotImplementedError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings needs the placement of parameters by "
-            "logical axes, which is not ported (ROADMAP.md queue 4)")
+    ``shardings``: None, or a tree of ``NamedSharding`` with one a leaf of
+    the like-tree (in its structure); each leaf then comes back laid out by
+    its sharding, a ``Placed`` of the like-leaf's dtype.  Raises
+    ``KeyError`` when the checkpoint lacks a key of the like-tree and
+    ``ValueError`` on a shape mismatch or a sharding tree of another
+    size."""
+    from repro_torch.distributed.mesh import device_put
     path = os.path.join(ckpt_dir, f"step_{step}")
     flat = list(_flatten(like_tree))
+    placements = [None] * len(flat) if shardings is None \
+        else [s for _, s in _flatten(shardings)]
+    if len(placements) != len(flat):
+        raise ValueError(f"{len(placements)} shardings for {len(flat)} "
+                         f"leaves")
     with np.load(os.path.join(path, "arrays.npz")) as data:
         missing = [k for k, _ in flat if k not in data.files]
         if missing:
             raise KeyError(f"checkpoint {path} missing keys: {missing[:5]}")
         leaves = [_restore_leaf(data[k], like, k) for k, like in flat]
+    leaves = [leaf if sh is None else device_put(leaf, sh)
+              for leaf, sh in zip(leaves, placements)]
     return _unflatten(like_tree, iter(leaves))

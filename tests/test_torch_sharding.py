@@ -198,10 +198,14 @@ def test_mesh_make_mesh_and_context():
 def test_shard_map_places_slices_row_major_and_replicates_once():
     devs = [torch.device("cpu", i) for i in range(4)]
     mesh = make_mesh((2, 2), ("data", "model"), devices=devs)
-    assert SMC._shard_devices(mesh, ("data", "model")) == devs
-    assert SMC._shard_devices(mesh, ("model", "data")) == \
-        [devs[0], devs[2], devs[1], devs[3]]
-    assert SMC._shard_devices(mesh, ("data",)) == [devs[0], devs[2]]
+    # slice i of a split over some axes goes to the mesh positions whose
+    # coordinates on those axes, row-major in the spec's order, are i
+    grid = [{"data": d, "model": m} for d in (0, 1) for m in (0, 1)]
+    assert [SMC._block(mesh, ("data", "model"), c) for c in grid] == \
+        [0, 1, 2, 3]
+    assert [SMC._block(mesh, ("model", "data"), c) for c in grid] == \
+        [0, 2, 1, 3]
+    assert [SMC._block(mesh, ("data",), c) for c in grid] == [0, 0, 1, 1]
     seen = []
 
     def body(x, w):
@@ -222,9 +226,16 @@ def test_shard_map_places_slices_row_major_and_replicates_once():
     assert not any(a is b for a, b in zip(seen[8:], first))
     with pytest.raises(ValueError, match="does not split 4 ways"):
         run(torch.arange(6.0), w)
+    # a split of a later dimension, and of two dimensions, gathers back to
+    # the operand (the MoE slice's specs; tests/test_torch_moe.py holds
+    # them and the reductions in full)
+    m = torch.arange(32.0).reshape(4, 8)
     for spec in (SH.P(None, "data"), SH.P("data", "model")):
-        with pytest.raises(NotImplementedError, match="MoE slice"):
-            SMC.shard_map_compat(body, mesh, (spec, SH.P()), SH.P("data"))
+        same = SMC.shard_map_compat(lambda x: x.clone(), mesh, (spec,), spec)
+        assert torch.equal(same(m), m)
+    with pytest.raises(NotImplementedError, match="no operand is split"):
+        SMC.shard_map_compat(body, mesh, (SH.P("data"), SH.P()),
+                             SH.P("model"))
     with pytest.raises(ValueError, match="not in the mesh"):
         SMC.shard_map_compat(body, mesh, (SH.P("pod"), SH.P()), SH.P())
 

@@ -7,6 +7,8 @@
     python3 chip_smoke.py --sharded   (phases 1, 2, the worker-thread
                   check and 6b' alone; on several cards, a mesh over them)
     python3 chip_smoke.py --train     (phases 1, 2 and 6e alone)
+    python3 chip_smoke.py --seq-sum   (phase 1, the seq_sum build and its
+                  checks and times of phase 3 alone)
     python3 chip_smoke.py --moe       (phases 1, 2, the flash_attention
                   sweep and [moe]'s two forms, and 7b alone)
     python3 chip_smoke.py --moe-sharded   (phases 1, 2 and 7b's
@@ -20,10 +22,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with nvcc, one process per source;
 3. kernels: each kernel form (motion_sad exhaustive/diamond x f32/bf16,
    blockdct forward at the anchor and LR shapes and its inverse,
-   and with a table a frame, seq_sum at the codec's and the anchors'
-   grids, qtransfer f32 at the quality transfer's and the motion
-   compensation's shapes and bf16, roi_gather, and nine flash_attention
-   forms:
+   and with a table a frame, seq_sum at the LR codec's grid and the
+   anchors' of one stream and of nine (and, checked, not timed, at the
+   (S, 1, T) grid, grids it streams in row or column tiles, odd and
+   misaligned grids; then the time of one add of its chain), qtransfer
+   f32 at the quality transfer's and the motion compensation's shapes
+   and bf16, roi_gather, and nine flash_attention forms:
    llama3.2-1B's and chatglm3-6B's heads, a 1024 window, cross Sq != Sk,
    non-causal, ragged, f32 inputs, qwen2-moe's heads and mixtral's with
    its 4096 window) against its plain PyTorch version on
@@ -143,6 +147,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -212,10 +217,10 @@ def phase_card() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build(names=None) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    reports = build.build()
+    reports = build.build(names or build.SOURCES)
     dt = time.perf_counter() - t0
     print(f"[build] {len(reports)} kernel libraries built in {dt:.2f} s "
           f"into {build.BUILD_DIR}")
@@ -741,7 +746,36 @@ def check_blockdct_tables(g) -> dict:
 
 # seq_sum's timed grids (lanes, rows, cols): the LR codec's 8x8-block bits
 # of 9 streams x 30 frames at 352x640, and the anchors' of 30 HD frames
-SEQ_SUM_SHAPES = ((270, 44, 80), (30, 90, 160))
+# (one stream) and of 270 (nine streams: the batched path's largest grid)
+SEQ_SUM_SHAPES = ((270, 44, 80), (30, 90, 160), (270, 90, 160))
+# checked, not timed: the (S, 1, T) video and anchor bits of nine streams
+# (several lanes a block), one stream's LR bits, rows past a block's tile
+# (row tiles, with many lanes and with few), rows wider than a staging
+# buffer (column tiles), and odd shapes (4-byte copies)
+SEQ_SUM_CHECKED = ((9, 1, 30), (30, 44, 80), (132, 200, 160),
+                   (2, 2000, 160), (2, 1, 40000), (3, 1, 200), (5, 200, 1),
+                   (4, 7, 13))
+# the chain of dependent adds a lane: one row of 2^18 columns, which
+# measures the time of one add in the kernel's scan
+SEQ_SUM_CHAIN = (1, 1, 1 << 18)
+# a timed grid's copies, read in turns, span this many bytes: over twice
+# the H100's 50 MB L2, so that each call reads its grid from HBM, as the
+# bytes bound assumes
+SEQ_SUM_COLD_BYTES = 128 << 20
+# the latency of one f32 add that depends on the one before, in SM
+# cycles: 4 on Volta (Jia et al., "Dissecting the NVIDIA Volta GPU
+# Architecture via Microbenchmarking", arXiv:1804.06826), taken as
+# Hopper's; check_seq_sum measures it at SEQ_SUM_CHAIN beside the bound
+FADD_LATENCY_CYCLES = 4
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def _seq_sum_numpy(x):
@@ -758,22 +792,53 @@ def _seq_sum_numpy(x):
     return total
 
 
+def _seq_sum_grid(g, shape, misaligned: bool = False):
+    """Normal values scaled over 7 decades, where the order shows; with
+    ``misaligned``, stored 4 bytes past a 16-byte boundary (the kernel's
+    4-byte copies)."""
+    import torch
+    dev = torch.device("cuda")
+    scale = 10.0 ** (torch.rand(shape, generator=g, device=dev) * 7 - 3)
+    x = torch.randn(shape, generator=g, device=dev) * scale
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, device=dev)
+        buf[1:] = x.flatten()
+        x = buf[1:].view(shape)
+    return x
+
+
+def _rotating(fn, xs):
+    """``fn`` on each of ``xs`` in turn, one a call."""
+    turns = itertools.cycle(xs)
+    return lambda: fn(next(turns))
+
+
 def check_seq_sum(g) -> list[dict]:
     """The order-stable sum on the card: bit for bit its plain version
     (one add a column) and a numpy f32 loop on the host, on grids of
     widely scaled values (where the order shows) and on a grid with zero
-    padding (which must add nothing); timed at SEQ_SUM_SHAPES.
-    ``library_ms`` times ``torch.sum`` over the grid: the same sum, in
-    another order."""
+    padding (which must add nothing), at SEQ_SUM_SHAPES (timed; the first
+    also stored misaligned) and SEQ_SUM_CHECKED; then the time of one add
+    of a lane's chain at SEQ_SUM_CHAIN.  The kernel and ``torch.sum`` over
+    the grid (the same sum, in another order; ``library_ms`` and
+    ``library_device_ms``) are timed by events and from a CUDA graph on
+    copies of the grid read in turns, which the L2 cannot hold
+    (SEQ_SUM_COLD_BYTES); ``*_warm_ms`` from a graph on one copy, read
+    from the L2.  The bound is the larger of the bytes at the HBM rate and
+    a lane's chain of C + R dependent adds at FADD_LATENCY_CYCLES and the
+    card's highest clock."""
     import numpy as np
     import torch
-    from repro_torch.kernels.seq_sum.ops import seq_sum, seq_sum_plain
-    dev = torch.device("cuda")
+    from repro_torch.kernels.seq_sum import ops
+    seq_sum, seq_sum_plain = ops.seq_sum, ops.seq_sum_plain
+    clock = max_sm_clock_hz()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for shape in SEQ_SUM_SHAPES + ((3, 1, 200), (5, 200, 1), (4, 7, 13)):
+    cases = [(s, False) for s in SEQ_SUM_SHAPES + SEQ_SUM_CHECKED]
+    cases.insert(1, (SEQ_SUM_SHAPES[0], True))
+    for shape, misaligned in cases:
         L, R, C = shape
-        scale = 10.0 ** (torch.rand(shape, generator=g, device=dev) * 7 - 3)
-        x = torch.randn(shape, generator=g, device=dev) * scale
+        x = _seq_sum_grid(g, shape, misaligned)
         got = seq_sum(x)
         plain = seq_sum_plain(x)
         host = _seq_sum_numpy(x.cpu().numpy())
@@ -785,22 +850,72 @@ def check_seq_sum(g) -> list[dict]:
             raise AssertionError(f"seq_sum {shape}: the kernel, its plain "
                                  "version and the host loop differ")
         differs = int((got != x.sum(dim=(1, 2))).sum())
-        print(f"[kernels] seq_sum {L}x{R}x{C}: == plain version == numpy f32 "
-              f"loop, bit for bit; zero padding adds nothing; torch.sum "
-              f"differs in {differs} of {L} lanes")
-        if shape not in SEQ_SUM_SHAPES:
+        p = ops.plan(L, R, C, n_sms)
+        print(f"[kernels] seq_sum {L}x{R}x{C}"
+              f"{' (misaligned)' if misaligned else ''}: == plain version == "
+              f"numpy f32 loop, bit for bit; zero padding adds nothing; "
+              f"torch.sum differs in {differs} of {L} lanes; plan: "
+              f"{p.grid(L)} blocks of {p.threads} threads, "
+              f"{p.lanes_per_cta} lanes a block, tiles "
+              f"{p.tile_rows}x{p.tile_cols} in {p.buffers} buffer(s), "
+              f"{p.smem_bytes(R)} B shared")
+        if shape not in SEQ_SUM_SHAPES or misaligned:
             continue
-        b, by = bound_ms((L * R * C + L) * F32, L * R * C)
+        t_bytes = (L * R * C + L) * F32 / HBM_BYTES_PER_S * 1e3
+        t_chain = (C + R) * FADD_LATENCY_CYCLES / clock * 1e3
+        b, by = max((t_bytes, "bytes"), (t_chain, "operations"))
+
+        n_copies = -(-SEQ_SUM_COLD_BYTES // (x.numel() * F32))
+        xs = [x] + [x.clone() for _ in range(n_copies - 1)]
+        n_calls = max(20, n_copies)
+
+        def library(y):
+            return y.sum(dim=(1, 2))
+        kernel_cold = _rotating(seq_sum, xs)
+        library_cold = _rotating(library, xs)
         out.append(dict(
             name="seq_sum", mode="lanes x rows x cols", route="cuda",
             source=SOURCE + "seq_sum.cu",
             replaces="src/repro/codec/blockdct.py:95 (seq_sum, lax.scan; "
                      "no Pallas kernel)",
             max_abs_err=0.0, bound_ms=b, bound_by=by,
+            bound_bytes_ms=t_bytes, bound_chain_ms=t_chain,
             plain_ms=cuda_ms(lambda: seq_sum_plain(x), reps=5, inner=1,
                              warmup=1),
-            library_ms=cuda_ms(lambda: x.sum(dim=(1, 2))),
-            shape=f"{L}x{R}x{C}", **_timed(lambda: seq_sum(x))))
+            library_ms=cuda_ms(library_cold),
+            library_device_ms=graph_ms(library_cold, n=n_calls),
+            library_device_warm_ms=graph_ms(lambda: library(x)),
+            shape=f"{L}x{R}x{C}", ms=cuda_ms(kernel_cold),
+            device_ms=graph_ms(kernel_cold, n=n_calls),
+            device_warm_ms=graph_ms(lambda: seq_sum(x)),
+            host_ms=host_ms(lambda: seq_sum(x))))
+        k = out[-1]
+        print(f"[kernels] seq_sum {L}x{R}x{C}: bound {b * 1e3:.2f} us "
+              f"({by}: bytes {t_bytes * 1e3:.2f} us, chain of {C + R} adds "
+              f"{t_chain * 1e3:.2f} us at {clock / 1e6:.0f} MHz); device us "
+              f"a call (CUDA graph of {n_calls}, {n_copies} copies in turns; "
+              f"one copy, from the L2): kernel {k['device_ms'] * 1e3:.2f} "
+              f"(warm {k['device_warm_ms'] * 1e3:.2f}), torch.sum "
+              f"{k['library_device_ms'] * 1e3:.2f} (warm "
+              f"{k['library_device_warm_ms'] * 1e3:.2f}); events kernel "
+              f"{k['ms'] * 1e3:.2f}, torch.sum {k['library_ms'] * 1e3:.2f}; "
+              f"host {k['host_ms'] * 1e3:.2f}")
+        del xs, kernel_cold, library_cold
+    # one lane of one row: the kernel's time is its chain of adds
+    x = _seq_sum_grid(g, SEQ_SUM_CHAIN)
+    got = seq_sum(x)
+    ref = np.cumsum(x.cpu().numpy()[0, 0], dtype=np.float32)[-1]
+    torch.cuda.synchronize()
+    if float(got[0]) != float(ref):
+        raise AssertionError(f"seq_sum {SEQ_SUM_CHAIN}: {float(got[0])} "
+                             f"against the host's sequential {float(ref)}")
+    t = graph_ms(lambda: seq_sum(x), n=5, reps=5)
+    n_adds = SEQ_SUM_CHAIN[2] + SEQ_SUM_CHAIN[1]
+    print(f"[kernels] seq_sum chain {'x'.join(map(str, SEQ_SUM_CHAIN))}: == "
+          f"numpy's sequential f32 cumsum; {t * 1e3:.1f} us a launch (CUDA "
+          f"graph) = {t * 1e6 / n_adds:.3f} ns an add = "
+          f"{t * 1e-3 / n_adds * clock:.2f} cycles at {clock / 1e6:.0f} MHz "
+          f"(the bound takes {FADD_LATENCY_CYCLES})")
     return out
 
 
@@ -4345,6 +4460,15 @@ def main(argv) -> int:
         phase_build()
         check_threaded_launch()
         phase_sharded(params, det_cfg)
+        return 0
+    if argv[:1] == ["--seq-sum"]:
+        # the seq_sum kernel alone: the card line, its build, its checks
+        # and times
+        card = phase_card()
+        phase_build(("seq_sum",))
+        for k in check_seq_sum(torch.Generator(device="cuda").manual_seed(0)):
+            _print_kernel(k)
+        print(card)
         return 0
     if argv[:1] == ["--train-restart"]:
         phase_train_restart()

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repo root; needs one CUDA card)
-    python3 chip_smoke.py --profile main|roi|batched|control|serving|lm
+    python3 chip_smoke.py --profile main|roi|batched|control|serving|lm|moe|zoo
                                                   (one profile)
     python3 chip_smoke.py --sharded   (phases 1, 2, the worker-thread
                   check and 6b' alone; on several cards, a mesh over them)
@@ -14,6 +14,7 @@
     python3 chip_smoke.py --moe-sharded   (phases 1, 2 and 7b's
                   expert-parallel moe_block alone; on several cards, meshes
                   over them)
+    python3 chip_smoke.py --zoo       (phases 1 and 7c alone)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -141,6 +142,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    8192-token requests through the kernel's window form (window 4096, 2
    launches), 32 decode steps past the window on the 4096-slot ring, the
    same holds against ``swa_attention`` and the forward;
+7c. zoo: ResNet-50, ResNet-152, ConvNeXt-B, ViT-B/16, DiT-B/2 and
+   DiT-XL/2 at full published width and depth in bf16 (random weights
+   from seeds, the reference's init rule), through ``launch.steps``'
+   ``materialize``, ``make_infer_fn`` and ``make_train_fn``: the vision
+   models serve batches of 1 and 128 at 224 px (median of 10 forwards,
+   images/s, peak memory), the DiTs one DDIM step at gen_fast (16 x 1024
+   tokens) and gen_1024 (4 x 4096 tokens) and ``sample_with_cache`` over
+   gen_fast's four steps refreshing every other step against every step
+   (walls, forwards 2 against 4); each trains 3 steps after a warm-up at
+   cls_224 or train_256 (step time, images/s, peak memory, finite losses,
+   ResNet's running stats moved).  Holds: each model's bf16 output at a
+   batch of 1 against its own parameters in f32 on the card (DiT's zero
+   leaves redrawn, or the output would be 0), and ResNet-50, ConvNeXt-B,
+   ViT-B/16 and DiT-XL/2 at full width, cut in depth, in f32 on the card
+   against the port's CPU path.  No kernel of the port is on these paths
+   (the reference's zoo reaches no Pallas kernel: its attention is
+   ``chunked_attention``, its convolutions XLA's): every call checks that
+   none launched.  ResNet-50 at a batch of 128 and one DiT-XL/2 step at
+   gen_fast profiled in a process of their own;
 8. one JSON line listing the kernels; 9. the JSON result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -2143,6 +2163,366 @@ def phase_profile_moe() -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         _print_profile(label, prof, wall, rows_shown=8)
+
+
+# [zoo]: the vision and diffusion zoo at full published width and depth
+ZOO_VISION = ("resnet_50", "resnet_152", "convnext_b", "vit_b16")
+ZOO_DIFFUSION = ("dit_b2", "dit_xl2")
+ZOO_SERVE_REPS = 10            # timed forwards a vision cell, after a warm-up
+ZOO_DIT_REPS = 3               # timed DDIM steps a diffusion cell
+ZOO_TRAIN_STEPS = 3            # timed train steps, after one warm-up
+# the train batch where the published 256 is cut: DiT-XL/2's step took
+# 3.74 s at 256 (H100 80GB HBM3, 700 W), over the ~3 s a step allowed
+ZOO_TRAIN_BATCH = {"dit_xl2": 128}
+ZOO_TIMESTEPS = (999, 749, 499, 249, 0)    # gen_fast's four DDIM steps
+ZOO_REFRESH = 2
+# hold 1: a model in bf16 against its own parameters in f32 on the card
+# (TF32 off), max|d| over max|f32 output|; top-1 equal or a near tie.
+# ViT and DiT hold on parameters drawn by _zoo_hold_specs
+ZOO_BF16_SHARE = 0.1
+# hold 2: a full-width model cut in depth, f32 on the card against the
+# port's CPU path: the convolutional models to f32 sums in another order,
+# ViT and DiT also to the bf16 casts of chunked_attention's q, k and v
+ZOO_CPU_TOL = {"resnet_50": 1e-4, "convnext_b": 1e-4, "vit_b16": 5e-3,
+               "dit_xl2": 5e-3}
+ZOO_CUT = {"resnet_50": dict(depths=(1, 1, 1, 1)),
+           "convnext_b": dict(depths=(1, 1, 1, 1)),
+           "vit_b16": dict(n_layers=2), "dit_xl2": dict(n_layers=2)}
+ZOO_CUT_RES = {"resnet_50": 224, "convnext_b": 224, "vit_b16": 224,
+               "dit_xl2": 256}
+
+
+def _zoo_ms(fn, reps: int) -> float:
+    """The median host wall in ms of ``reps`` calls after one warm-up,
+    each ended by a synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _zoo_f32(arch, args):
+    """The arch with an f32 config and the parameter tree of ``args``
+    cast to f32 (ResNet's ``{"params", "batch_stats"}`` whole)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.params import tree_map
+    f32 = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype="float32"))
+    return f32, tree_map(lambda t: t.to(torch.float32), args)
+
+
+def _zoo_hold_specs(arch):
+    """The arch's parameter specs for the holds: every zero-initialised
+    leaf drawn from N(0, 0.02) instead (DiT's adaLN-Zero blocks and final
+    layer are otherwise the zero function, output ``final_b`` = 0, and a
+    hold on them would be empty), and the attention's q and k kernels
+    (``wq``, ``wk``: (L, d, H, Dh)) from N(0, 1/d): the reference's
+    fan-in rule takes H for their fan-in, which gives scores of std ~64,
+    a softmax that is a hard argmax, and a pick that one bf16 ulp (or an
+    f32 sum in another order) flips.  At 1/d the scores have std ~1."""
+    import dataclasses
+    import math
+    from repro_torch.launch import steps as S
+    from repro_torch.models.params import ParamSpec
+
+    def one(s, name=""):
+        if not isinstance(s, ParamSpec):
+            return {k: one(v, k) for k, v in s.items()}
+        if s.init == "zeros":
+            return dataclasses.replace(s, init="normal")
+        if name in ("wq", "wk"):
+            return dataclasses.replace(s, init="normal",
+                                       scale=1 / math.sqrt(s.shape[1]))
+        return s
+    return one(S._model(arch).param_specs(arch.cfg))
+
+
+def _zoo_serve_vision(arch_id: str, card: str) -> None:
+    """serve_b1 and serve_b128 of one vision arch through
+    ``make_infer_fn``: median ms of ZOO_SERVE_REPS, images/s, peak
+    memory; hold 1 at serve_b1."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_infer_fn, materialize
+    from repro_torch.models.params import init_params
+    arch = get_arch(arch_id)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    big = arch.shapes["serve_b128"]
+    params, batch = materialize(g, arch, big)
+    for name, b in (("serve_b1", {"images": batch["images"][:1]}),
+                    ("serve_b128", batch)):
+        case = arch.shapes[name]
+        fn = make_infer_fn(arch, case)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        ms = _zoo_ms(lambda: fn(params, b), ZOO_SERVE_REPS)
+        logits = fn(params, b)
+        _expect_launches(f"[zoo] {arch_id} {name}", {})
+        if logits.shape != (case.batch, arch.cfg.n_classes) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[zoo] {arch_id} {name}: bad logits")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[zoo] {arch_id} {name}: median {ms:.3f} ms of "
+              f"{ZOO_SERVE_REPS}, {case.batch * 1e3 / ms:.1f} images/s, "
+              f"peak {peak:.2f} GiB ({card})")
+    # hold 1: the same parameters in f32, the same port code (ViT's drawn
+    # by _zoo_hold_specs)
+    if arch_id == "vit_b16":
+        dev = batch["images"].device
+        params = init_params(torch.Generator(device=dev).manual_seed(1),
+                             _zoo_hold_specs(arch), dev)
+    f32, p32 = _zoo_f32(arch, params)
+    one = {"images": batch["images"][:1]}
+    got = make_infer_fn(arch, arch.shapes["serve_b1"])(params, one)
+    ref = make_infer_fn(f32, f32.shapes["serve_b1"])(p32, one)
+    _hold_logits(f"{arch_id} serve_b1 bf16 vs f32", got, ref, phase="zoo",
+                 tol=ZOO_BF16_SHARE)
+
+
+def _zoo_serve_dit(arch_id: str, card: str) -> None:
+    """One DDIM step of one DiT at gen_fast and gen_1024 through
+    ``make_infer_fn`` (median of ZOO_DIT_REPS after a warm-up); then
+    ``sample_with_cache`` over gen_fast's four steps refreshing every
+    ZOO_REFRESH steps against four fresh steps (the forwards counted);
+    hold 1 at B = 1 of gen_fast's size, on parameters drawn by
+    :func:`_zoo_hold_specs`."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_infer_fn, materialize
+    from repro_torch.models import dit as DIT
+    from repro_torch.models.params import init_params
+    arch = get_arch(arch_id)
+    cfg = arch.cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name in ("gen_1024", "gen_fast"):
+        case = arch.shapes[name]
+        params, batch = materialize(g, arch, case)
+        fn = make_infer_fn(arch, case)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        ms = _zoo_ms(lambda: fn(params, batch), ZOO_DIT_REPS)
+        x = fn(params, batch)
+        _expect_launches(f"[zoo] {arch_id} {name}", {})
+        if x.shape != batch["xt"].shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"[zoo] {arch_id} {name}: bad step output")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = cfg.n_tokens(case.img_res)
+        print(f"[zoo] {arch_id} {name}: one ddim_step of {case.batch} x "
+              f"{tokens} tokens, median {ms:.3f} ms of {ZOO_DIT_REPS}, "
+              f"{case.batch * 1e3 / ms:.2f} images/s a step, peak "
+              f"{peak:.2f} GiB ({card})")
+    fast = batch                     # gen_fast's, with its parameters
+    # the step cache: refresh every ZOO_REFRESH steps against every step
+    calls = []
+    forward = DIT.forward
+
+    def counted(*a):
+        calls.append(1)
+        return forward(*a)
+    DIT.forward = counted
+    try:
+        walls = {}
+        with torch.no_grad():
+            for every in (1, ZOO_REFRESH):
+                del calls[:]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                xs = DIT.sample_with_cache(params, cfg, fast["xt"],
+                                           ZOO_TIMESTEPS, fast["y"],
+                                           refresh_every=every)
+                torch.cuda.synchronize()
+                walls[every] = ((time.perf_counter() - t0) * 1e3,
+                                len(calls))
+                if not bool(torch.isfinite(xs).all()):
+                    raise AssertionError(f"[zoo] {arch_id} sample: not "
+                                         "finite")
+    finally:
+        DIT.forward = forward
+    n = len(ZOO_TIMESTEPS) - 1
+    if walls[1][1] != n or walls[ZOO_REFRESH][1] != -(-n // ZOO_REFRESH):
+        raise AssertionError(f"[zoo] {arch_id} sample: forwards {walls}")
+    print(f"[zoo] {arch_id} gen_fast sample_with_cache over {n} steps: "
+          f"refresh every {ZOO_REFRESH}: {walls[ZOO_REFRESH][0]:.1f} ms, "
+          f"{walls[ZOO_REFRESH][1]} forwards; every step: "
+          f"{walls[1][0]:.1f} ms, {walls[1][1]} forwards ({card})")
+    # hold 1, on parameters drawn by _zoo_hold_specs
+    del params
+    torch.cuda.empty_cache()
+    dev = fast["xt"].device
+    drawn = init_params(torch.Generator(device=dev).manual_seed(1),
+                        _zoo_hold_specs(arch), dev)
+    f32, p32 = _zoo_f32(arch, drawn)
+    xt, t, tp, y = (fast[k][:1] for k in ("xt", "t", "t_prev", "y"))
+    with torch.no_grad():
+        got = DIT.ddim_step(drawn, cfg, xt, t, tp, y)
+        ref = DIT.ddim_step(p32, f32.cfg, xt, t, tp, y)
+        eps = DIT.forward(drawn, cfg, xt, t, y)
+        eps32 = DIT.forward(p32, f32.cfg, xt, t, y)
+    for tag, a, b in (("eps", eps, eps32), ("ddim_step", got, ref)):
+        rel = _rel_err(a, b)
+        print(f"[zoo] {arch_id} gen_fast B=1 {tag} bf16 vs f32: max|d| "
+              f"{float((a - b).abs().max()):.4g} = {rel:.4g} of "
+              f"max|f32| {float(b.abs().max()):.4g} (tolerance "
+              f"{ZOO_BF16_SHARE})")
+        if not rel <= ZOO_BF16_SHARE:
+            raise AssertionError(f"[zoo] {arch_id} {tag}: bf16 and f32 "
+                                 f"disagree ({rel})")
+
+
+def _zoo_train(arch_id: str, card: str) -> None:
+    """ZOO_TRAIN_STEPS steps of ``make_train_fn`` after one warm-up, at
+    cls_224 (vision) or train_256 (diffusion), the published batch unless
+    ZOO_TRAIN_BATCH cuts it: step ms, images/s, peak memory and the
+    losses (finite); ResNet's batch_stats must move."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_train_fn, materialize
+    from repro_torch.models.params import tree_leaves
+    arch = get_arch(arch_id)
+    name = "train_256" if arch.family == "diffusion" else "cls_224"
+    case = arch.shapes[name]
+    if arch_id in ZOO_TRAIN_BATCH:
+        print(f"[zoo] {arch_id} {name}: batch cut from {case.batch} to "
+              f"{ZOO_TRAIN_BATCH[arch_id]}")
+        case = dataclasses.replace(case, batch=ZOO_TRAIN_BATCH[arch_id])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state, batch = materialize(g, arch, case)
+    stats0 = [t.clone() for t in tree_leaves(state.get("batch_stats", {}))]
+    step = make_train_fn(arch, case.grad_accum)
+    losses, times = [], []
+    build.reset_launches()
+    for _ in range(ZOO_TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))          # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    _expect_launches(f"[zoo] {arch_id} {name}", {})
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[zoo] {arch_id} {name}: losses {losses}")
+    if stats0 and all(torch.equal(a, b) for a, b in
+                      zip(stats0, tree_leaves(state["batch_stats"]))):
+        raise AssertionError(f"[zoo] {arch_id}: batch_stats did not move")
+    ms = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[zoo] {arch_id} {name} train: batch {case.batch}, step "
+          f"{ms:.1f} ms (median of {ZOO_TRAIN_STEPS} after a warm-up of "
+          f"{times[0]:.1f} ms), {case.batch * 1e3 / ms:.1f} images/s, peak "
+          f"{peak:.2f} GiB, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}"
+          f"{', batch_stats moved' if stats0 else ''} ({card})")
+
+
+def _zoo_cut_vs_cpu(arch_id: str) -> None:
+    """Hold 2: the full-width arch cut in depth (ZOO_CUT), f32, on the
+    card against the port's CPU path on the same parameters (drawn on the
+    CPU by :func:`_zoo_hold_specs`, ResNet's running means too) and
+    inputs, B = 1."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_infer_fn
+    from repro_torch.models.params import init_params, tree_map
+    base = get_arch(arch_id)
+    arch = dataclasses.replace(base, cfg=dataclasses.replace(
+        base.cfg, dtype="float32", **ZOO_CUT[arch_id]))
+    cpu = torch.device("cpu")
+    params = init_params(torch.Generator().manual_seed(2),
+                         _zoo_hold_specs(arch), cpu)
+    g = torch.Generator().manual_seed(3)
+    res = ZOO_CUT_RES[arch_id]
+    if arch.family == "diffusion":
+        lr = arch.cfg.latent_res(res)
+        t, tp = torch.full((1,), 500), torch.full((1,), 480)
+        batch = {"xt": torch.randn(1, lr, lr, 4, generator=g), "t": t,
+                 "t_prev": tp, "y": torch.zeros(1, dtype=torch.int32)}
+        case = arch.shapes["gen_fast"]
+    else:
+        batch = {"images": torch.randn(1, res, res, 3, generator=g)}
+        case = arch.shapes["serve_b1"]
+    fn = make_infer_fn(arch, case)
+    ref = fn(params, batch)
+    got = fn(tree_map(lambda a: a.cuda(), params),
+             {k: v.cuda() for k, v in batch.items()}).cpu()
+    rel = _rel_err(got, ref)
+    tol = ZOO_CPU_TOL[arch_id]
+    cut = ", ".join(f"{k}={v}" for k, v in ZOO_CUT[arch_id].items())
+    print(f"[zoo] {arch_id} ({cut}, f32, {res} px) card vs CPU: max|d| "
+          f"{float((got - ref).abs().max()):.4g} = {rel:.4g} of max|CPU| "
+          f"{float(ref.abs().max()):.4g} (tolerance {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"[zoo] {arch_id}: card and CPU disagree "
+                             f"({rel})")
+
+
+def phase_zoo(card: str) -> None:
+    """[zoo] the six vision and diffusion configs at full published width
+    and depth, bf16, the reference's init rule from seeded generators:
+    serving (:func:`_zoo_serve_vision`, :func:`_zoo_serve_dit`), training
+    (:func:`_zoo_train`), and the holds (1: bf16 against f32 on the card,
+    in the serving functions; 2: :func:`_zoo_cut_vs_cpu`).  No kernel of
+    the port is on these paths (the reference's zoo reaches no Pallas
+    kernel), which every serve and train call checks."""
+    import torch
+    t0 = time.perf_counter()
+    for arch_id in ZOO_VISION:
+        _zoo_serve_vision(arch_id, card)
+        torch.cuda.empty_cache()
+    for arch_id in ZOO_DIFFUSION:
+        _zoo_serve_dit(arch_id, card)
+        torch.cuda.empty_cache()
+    for arch_id in (*ZOO_VISION, *ZOO_DIFFUSION):
+        _zoo_train(arch_id, card)
+        torch.cuda.empty_cache()
+    for arch_id in ZOO_CUT:
+        _zoo_cut_vs_cpu(arch_id)
+    print(f"[zoo] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def phase_profile_zoo() -> None:
+    """ResNet-50 at serve_b128 and one DiT-XL/2 DDIM step at gen_fast
+    under torch.profiler, after an unprofiled warm-up of each, in a
+    process of its own (``--profile zoo``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_infer_fn, materialize
+    runs = []
+    for arch_id, name in (("resnet_50", "serve_b128"),
+                          ("dit_xl2", "gen_fast")):
+        arch = get_arch(arch_id)
+        case = arch.shapes[name]
+        params, batch = materialize(
+            torch.Generator(device="cuda").manual_seed(0), arch, case)
+        fn = make_infer_fn(arch, case)
+        runs.append((f"zoo {arch_id} {name}: batch {case.batch}",
+                     lambda fn=fn, p=params, b=batch: fn(p, b)))
+    for _, run in runs:
+        run()
+    torch.cuda.synchronize()
+    for label, run in runs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _print_profile(label, prof, wall, rows_shown=10)
 
 
 def _streams(n: int = 2):
@@ -4511,9 +4891,21 @@ def main(argv) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if argv[:1] == ["--zoo"]:
+        # the vision and diffusion zoo alone, with the card line
+        card = phase_card()
+        phase_zoo(card)
+        profile_in_child("zoo")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
             phase_profile_lm()
+        elif argv[1] == "zoo":
+            phase_profile_zoo()
         elif argv[1] == "moe":
             phase_profile_moe()
         elif argv[1] == "batched":
@@ -4567,6 +4959,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     launches.update(phase_moe())
     profile_in_child("moe")
+    torch.cuda.empty_cache()
+    phase_zoo(card)
+    profile_in_child("zoo")
 
     # each kernel's launches from the first path that runs it (the bf16
     # qtransfer is on no path: the reference reaches it only from its

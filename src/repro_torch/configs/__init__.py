@@ -1,10 +1,12 @@
-"""Architecture registry (port of ``repro.configs``, the decoder-LM part).
+"""Architecture registry (port of ``repro.configs``): the ten zoo
+architectures; the paper's own edge config is ``configs.biswift_edge``.
 
 Each ``configs/<id>.py`` exposes ``build() -> ArchSpec`` with the
 reference's full configuration and ``build_reduced() -> ArchSpec`` for the
-CPU parity tests.  The four decoder LMs are ported (llama3.2-1B,
-chatglm3-6B, qwen2-moe-a2.7B, mixtral-8x22B); the vision and diffusion
-ids raise ``NotImplementedError`` until their slice (ROADMAP.md queue 3).
+CPU parity tests: four decoder LMs (llama3.2-1B, chatglm3-6B,
+qwen2-moe-a2.7B, mixtral-8x22B), two diffusion transformers (DiT-XL/2,
+DiT-B/2) and four vision classifiers (ResNet-152, ResNet-50, ConvNeXt-B,
+ViT-B/16).  Select one with ``--arch <id>`` in the launchers.
 """
 from __future__ import annotations
 
@@ -50,12 +52,33 @@ def lm_shapes(sub_quadratic: bool) -> dict[str, ShapeCase]:
     }
 
 
+def diffusion_shapes() -> dict[str, ShapeCase]:
+    return {
+        "train_256": ShapeCase("train_256", "train", batch=256, img_res=256,
+                               steps=1000),
+        "gen_1024": ShapeCase("gen_1024", "sample", batch=4, img_res=1024,
+                              steps=50),
+        "gen_fast": ShapeCase("gen_fast", "sample", batch=16, img_res=512,
+                              steps=4),
+        "train_1024": ShapeCase("train_1024", "train", batch=32, img_res=1024,
+                                steps=1000),
+    }
+
+
+def vision_shapes() -> dict[str, ShapeCase]:
+    return {
+        "cls_224": ShapeCase("cls_224", "train", batch=256, img_res=224),
+        "cls_384": ShapeCase("cls_384", "train", batch=64, img_res=384),
+        "serve_b1": ShapeCase("serve_b1", "infer", batch=1, img_res=224),
+        "serve_b128": ShapeCase("serve_b128", "infer", batch=128, img_res=224),
+    }
+
+
 ARCH_IDS = [
     "llama3_2_1b", "chatglm3_6b", "qwen2_moe_a2_7b", "mixtral_8x22b",
     "dit_xl2", "dit_b2",
     "resnet_152", "resnet_50", "convnext_b", "vit_b16",
 ]
-PORTED = ("llama3_2_1b", "chatglm3_6b", "qwen2_moe_a2_7b", "mixtral_8x22b")
 
 # dashes in the public ids map to underscores in module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -71,9 +94,13 @@ def get_arch(arch_id: str, reduced: bool = False) -> ArchSpec:
     arch_id = ALIASES.get(arch_id, arch_id)
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queue 3); ported: "
-            f"{', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.build_reduced() if reduced else mod.build()
+
+
+def all_cells():
+    """Yield every (arch_id, shape_name, skip_reason_or_None)."""
+    for a in ARCH_IDS:
+        spec = get_arch(a)
+        for s in spec.shapes.values():
+            yield a, s.name, s.skip

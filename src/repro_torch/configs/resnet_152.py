@@ -1,0 +1,15 @@
+"""resnet-152: depths 3-8-36-3, width 64, bottleneck [arXiv:1512.03385]."""
+from repro_torch.configs import ArchSpec, vision_shapes
+from repro_torch.models.resnet import ResNetConfig
+
+
+def build() -> ArchSpec:
+    cfg = ResNetConfig(name="resnet-152", depths=(3, 8, 36, 3), width=64)
+    return ArchSpec("resnet_152", "vision", cfg, vision_shapes(),
+                    source="arXiv:1512.03385")
+
+
+def build_reduced() -> ArchSpec:
+    cfg = ResNetConfig(name="resnet-152-reduced", depths=(1, 2, 2, 1),
+                       width=8, n_classes=10)
+    return ArchSpec("resnet_152", "vision", cfg, vision_shapes())

@@ -1,14 +1,15 @@
-"""Step builders and real inputs for the decoder-LM family (port of the
-LM part of ``repro.launch.steps``): the training step with microbatches,
-prefill and decode.
+"""Step builders and real inputs for every (architecture x shape) cell
+(port of ``repro.launch.steps``): the training step (microbatches for the
+families without batch statistics; ResNet's step returns its new
+``batch_stats``), LM prefill and decode, the vision forward and the
+diffusion DDIM step.
 
 ``build_cell(arch, case)`` returns a :class:`Cell` whose ``fn`` is the
 step and whose ``args`` are tensors on the ``meta`` device with the
 reference's shapes and dtypes (nothing allocated).  ``materialize
 (generator, arch, case)`` makes real parameters and inputs for it on the
 resolved device.  The reference's shardings and ``batch_specs`` feed its
-dry run (ROADMAP.md queue 5); the vision and diffusion families wait for
-their slice (ROADMAP.md queue 3).
+dry run (ROADMAP.md queue 5).
 
 The backward is autograd through the plain PyTorch path: no kernel of
 the reference or the port has a backward (``attention_impl="pallas"``
@@ -23,8 +24,8 @@ import torch
 
 from repro_torch.configs import ArchSpec, ShapeCase
 from repro_torch.device import resolve_device
+from repro_torch.models import convnext, dit, resnet, transformer_lm, vit
 from repro_torch.models import params as PM
-from repro_torch.models import transformer_lm as M
 from repro_torch.train import optimizer as OPT
 
 i32 = torch.int32
@@ -51,36 +52,70 @@ class Cell:
     kind: str
 
 
-def _lm_only(arch: ArchSpec) -> None:
-    if arch.family != "lm":
-        raise NotImplementedError(
-            f"{arch.arch_id}: the {arch.family} family is not ported yet "
-            "(ROADMAP.md queue 3)")
+def _model(arch: ArchSpec):
+    """The module of the arch's family (and, for vision, its config)."""
+    if arch.family == "lm":
+        return transformer_lm
+    if arch.family == "diffusion":
+        return dit
+    vision = {resnet.ResNetConfig: resnet, convnext.ConvNeXtConfig: convnext,
+              vit.ViTConfig: vit}
+    if type(arch.cfg) not in vision:
+        raise ValueError(f"{arch.arch_id}: no {arch.family} model takes a "
+                         f"{type(arch.cfg).__name__}")
+    return vision[type(arch.cfg)]
 
 
-def _grads_of(cfg, params, batch):
-    """(loss, d loss / d params) by autograd; the gradients in the
-    parameters' dtypes and nesting."""
+def _is_resnet(arch: ArchSpec) -> bool:
+    return _model(arch) is resnet
+
+
+def _grads_of(loss_fn, params, batch):
+    """(loss, d loss / d params, aux) by autograd for ``loss_fn(params,
+    batch) -> (loss, aux)``; the gradients in the parameters' dtypes and
+    nesting, zero for a parameter the loss does not read (DiT's
+    ``final_ln_w``, as ``jax.grad`` gives it)."""
     p = PM.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = PM.tree_leaves(p)
-    loss = M.loss_fn(p, cfg, batch)
-    grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
-    return loss.detach(), PM.tree_map(lambda t: grads[id(t)], p)
+    loss, aux = loss_fn(p, batch)
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(
+        loss, leaves, allow_unused=True, materialize_grads=True)))
+    return loss.detach(), PM.tree_map(lambda t: grads[id(t)], p), aux
 
 
 def make_train_fn(arch: ArchSpec, grad_accum: int = 1):
     """``step(state, batch) -> (state, {"loss", "grad_norm", "lr"})`` with
-    state ``{"params", "opt"}``.  With ``grad_accum`` > 1 the batch is
-    split on dimension 0 into microbatches, run one after another; their
-    gradients are summed in ``GRAD_ACCUM_DTYPE`` and, with the loss,
-    divided by ``grad_accum`` before the AdamW update (``ADAMW``)."""
-    _lm_only(arch)
+    state ``{"params", "opt"}`` (and ResNet's ``"batch_stats"``).  With
+    ``grad_accum`` > 1 the batch is split on dimension 0 into
+    microbatches, run one after another; their gradients are summed in
+    ``GRAD_ACCUM_DTYPE`` and, with the loss, divided by ``grad_accum``
+    before the AdamW update (``ADAMW``).  ResNet's step takes the whole
+    batch whatever ``grad_accum`` says, as the reference's, and returns
+    the running stats its forward moved."""
     cfg = arch.cfg
+    M = _model(arch)
+
+    if _is_resnet(arch):
+        def resnet_step(state, batch):
+            loss, grads, new_st = _grads_of(
+                lambda p, b: M.loss_fn({"params": p, "batch_stats":
+                                        state["batch_stats"]}, cfg, b),
+                state["params"], batch)
+            new_p, new_opt, metrics = OPT.apply_updates(
+                state["params"], grads, state["opt"], ADAMW)
+            return ({"params": new_p, "opt": new_opt,
+                     "batch_stats": PM.tree_map(torch.Tensor.detach,
+                                                new_st)},
+                    {"loss": loss, **metrics})
+        return resnet_step
+
+    def loss(p, b):
+        return M.loss_fn(p, cfg, b), None
 
     def train_step(state, batch):
         params = state["params"]
         if grad_accum == 1:
-            loss, grads = _grads_of(cfg, params, batch)
+            loss_v, grads, _ = _grads_of(loss, params, batch)
         else:
             acc_dt = GRAD_ACCUM_DTYPE
             gsum = PM.tree_map(lambda t: torch.zeros(
@@ -90,33 +125,54 @@ def make_train_fn(arch: ArchSpec, grad_accum: int = 1):
                 mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
                                    *v.shape[1:])[i]
                       for k, v in batch.items()}
-                loss, g = _grads_of(cfg, params, mb)
+                loss_v, g, _ = _grads_of(loss, params, mb)
                 with torch.no_grad():
                     PM.tree_map(lambda a, x: a.add_(x.to(acc_dt)), gsum, g)
-                lsum = lsum + loss
+                lsum = lsum + loss_v
             grads = PM.tree_map(lambda t: t / grad_accum, gsum)
-            loss = lsum / grad_accum
+            loss_v = lsum / grad_accum
         new_p, new_opt, metrics = OPT.apply_updates(params, grads,
                                                     state["opt"], ADAMW)
-        return {"params": new_p, "opt": new_opt}, {"loss": loss, **metrics}
+        return {"params": new_p, "opt": new_opt}, {"loss": loss_v, **metrics}
     return train_step
 
 
 def make_infer_fn(arch: ArchSpec, case: ShapeCase):
-    """prefill: ``fn(params, batch) -> (last logits, (k, v))``; decode:
-    ``fn(params, cache, batch) -> (logits, cache)``, the cache updated in
-    place (:func:`repro_torch.models.transformer_lm.decode_step`)."""
-    _lm_only(arch)
-    if case.kind not in ("prefill", "decode"):
+    """LM prefill: ``fn(params, batch) -> (last logits, (k, v))``; LM
+    decode: ``fn(params, cache, batch) -> (logits, cache)``, the cache
+    updated in place (:func:`repro_torch.models.transformer_lm.
+    decode_step`); vision: ``fn(params, batch) -> logits`` (ResNet's
+    params ``{"params", "batch_stats"}``, eval mode); diffusion: ``fn(
+    params, batch) -> x_{t_prev}``, one DDIM step; both without
+    autograd."""
+    cfg = arch.cfg
+    M = _model(arch)
+    if arch.family == "lm":
+        if case.kind == "prefill":
+            return lambda params, batch: M.prefill_step(params, cfg,
+                                                        batch["tokens"])
+        if case.kind == "decode":
+            return lambda params, cache, batch: M.decode_step(
+                params, cfg, cache, batch["tokens"], batch["pos"])
         raise NotImplementedError(
             f"{case.kind}: an LM has a prefill or a decode step here; "
             "training goes through make_train_fn")
-    cfg = arch.cfg
-    if case.kind == "prefill":
-        return lambda params, batch: M.prefill_step(params, cfg,
-                                                    batch["tokens"])
-    return lambda params, cache, batch: M.decode_step(
-        params, cfg, cache, batch["tokens"], batch["pos"])
+    if case.kind == "train":
+        raise NotImplementedError(
+            f"{case.kind}: training goes through make_train_fn")
+    if arch.family == "diffusion":
+        def fn(params, batch):
+            return M.ddim_step(params, cfg, batch["xt"], batch["t"],
+                               batch["t_prev"], batch["y"])
+    elif M is resnet:
+        def fn(variables, batch):
+            return M.forward(variables, cfg, batch["images"],
+                             train=False)[0]
+    else:
+        def fn(params, batch):
+            return M.forward(params, cfg, batch["images"])
+    # inference records no graph (and so recomputes no block)
+    return torch.no_grad()(fn)
 
 
 def _meta(specs_tree):
@@ -127,64 +183,118 @@ def _meta(specs_tree):
     return {k: _meta(v) for k, v in specs_tree.items()}
 
 
+def _inputs(arch: ArchSpec, case: ShapeCase) -> dict:
+    """A cell's batch: name -> (shape, dtype), as the reference's
+    ``batch_specs``."""
+    B = case.batch
+    if arch.family == "lm":
+        if case.kind == "decode":
+            return {"tokens": ((B, 1), i32), "pos": ((), i32)}
+        out = {"tokens": ((B, case.seq_len), i32)}
+        if case.kind == "train":
+            out["labels"] = out["tokens"]
+        return out
+    if arch.family == "diffusion":
+        lr = arch.cfg.latent_res(case.img_res)
+        lat = ((B, lr, lr, arch.cfg.latent_channels), f32)
+        if case.kind == "train":
+            return {"latents": lat, "noise": lat, "t": ((B,), i32),
+                    "labels": ((B,), i32)}
+        return {"xt": lat, "t": ((B,), i32), "t_prev": ((B,), i32),
+                "y": ((B,), i32)}
+    r = case.img_res
+    out = {"images": ((B, r, r, 3), torch.bfloat16)}
+    if case.kind == "train":
+        out["labels"] = ((B,), i32)
+    return out
+
+
+def _params_and_stats(arch: ArchSpec, make):
+    """(params, ResNet's batch_stats or None), each spec tree through
+    ``make``."""
+    specs = _model(arch).param_specs(arch.cfg)
+    if _is_resnet(arch):
+        return make(specs["params"]), make(specs["batch_stats"])
+    return make(specs), None
+
+
+def _cell_args(case: ShapeCase, params, stats, batch, opt) -> tuple:
+    """A cell's arguments but a decode's: train ``(state, batch)``, the
+    state ``{"params", "opt"}`` and ResNet's ``"batch_stats"``; else
+    ``(params, batch)``, ResNet's params ``{"params", "batch_stats"}``."""
+    if case.kind == "train":
+        state = {"params": params, "opt": opt}
+        if stats is not None:
+            state["batch_stats"] = stats
+        return state, batch
+    if stats is not None:
+        return {"params": params, "batch_stats": stats}, batch
+    return params, batch
+
+
 def build_cell(arch: ArchSpec, case: ShapeCase) -> Cell:
     """The step of (arch, case) and meta tensors for its arguments, as the
     reference's ``build_cell`` without a mesh."""
-    _lm_only(arch)
-    cfg = arch.cfg
     name = f"{arch.arch_id}:{case.name}"
-    params = _meta(M.param_specs(cfg))
-    B = case.batch
-
-    def toks(S):
-        return torch.empty((B, S), dtype=i32, device="meta")
-
+    params, stats = _params_and_stats(arch, _meta)
+    batch = {k: torch.empty(shape, dtype=dt, device="meta")
+             for k, (shape, dt) in _inputs(arch, case).items()}
     if case.kind == "train":
-        state = {"params": params, "opt": OPT.init_state(params)}
-        batch = {"tokens": toks(case.seq_len), "labels": toks(case.seq_len)}
         return Cell(name, make_train_fn(arch, grad_accum=case.grad_accum),
-                    (state, batch), donate=(0,), kind="train")
+                    _cell_args(case, params, stats, batch,
+                               OPT.init_state(params)),
+                    donate=(0,), kind="train")
     fn = make_infer_fn(arch, case)
     if case.kind == "decode":
-        cache = _meta(M.init_cache_specs(cfg, B, case.seq_len))
-        batch = {"tokens": toks(1),
-                 "pos": torch.empty((), dtype=i32, device="meta")}
+        cache = _meta(transformer_lm.init_cache_specs(arch.cfg, case.batch,
+                                                      case.seq_len))
         return Cell(name, fn, (params, cache, batch), donate=(1,),
                     kind="decode")
-    return Cell(name, fn, (params, {"tokens": toks(case.seq_len)}),
+    return Cell(name, fn, _cell_args(case, params, stats, batch, None),
                 donate=(), kind=case.kind)
 
 
 def materialize(generator: torch.Generator, arch: ArchSpec,
                 case: ShapeCase, device=None):
     """Real parameters and inputs on the resolved device, drawn from
-    ``generator`` (which must live there): parameters first, then tokens.
+    ``generator`` (which must live there): parameters first, then the
+    inputs, in the arguments' structure of :func:`build_cell`; the
+    optimiser state and ResNet's batch_stats start as the reference's
+    (zero moments and step, zero means, unit variances).
 
-    train: ``({"params", "opt"}, {"tokens", "labels"})``, the labels the
-    tokens rolled one place left and the optimiser state zero; prefill:
-    ``(params, {"tokens": (B, S) int32})``; decode: ``(params, cache,
-    {"tokens": (B, 1) int32, "pos": min(7, S - 1)})`` with an empty cache
-    (every ``slot_pos`` -1), as the reference's ``steps.py:301-327``.
+    LM: seeded tokens, train's labels the tokens rolled one place left;
+    decode: ``(params, cache, {"tokens": (B, 1) int32, "pos": min(7, S -
+    1)})`` with an empty cache (every ``slot_pos`` -1), as the reference's
+    ``steps.py:301-327``.  Vision: N(0, 1) bf16 images and zero labels;
+    diffusion: N(0, 1) latents (and noise), t 500 (and t_prev 480), zero
+    labels.
     """
-    _lm_only(arch)
-    if case.kind not in ("train", "prefill", "decode"):
+    if arch.family == "lm" and case.kind not in ("train", "prefill",
+                                                 "decode"):
         raise NotImplementedError(f"{case.kind}: not an LM case")
     dev = resolve_device(device)
     cfg = arch.cfg
-    params = PM.init_params(generator, M.param_specs(cfg), dev)
-    B = case.batch
-    if case.kind in ("train", "prefill"):
-        toks = torch.randint(0, cfg.vocab, (B, case.seq_len),
-                             generator=generator, device=dev, dtype=i32)
-        if case.kind == "prefill":
-            return params, {"tokens": toks}
-        return ({"params": params, "opt": OPT.init_state(params)},
-                {"tokens": toks, "labels": torch.roll(toks, -1, 1)})
-    batch = {"tokens": torch.randint(0, cfg.vocab, (B, 1),
-                                     generator=generator, device=dev,
-                                     dtype=i32),
-             "pos": min(7, case.seq_len - 1)}
-    cache = PM.init_params(generator, M.init_cache_specs(cfg, B,
-                                                         case.seq_len), dev)
-    cache["slot_pos"].fill_(-1)
-    return params, cache, batch
+    params, stats = _params_and_stats(
+        arch, lambda specs: PM.init_params(generator, specs, dev))
+    batch = {}
+    for k, (shape, dt) in _inputs(arch, case).items():
+        if k == "pos":
+            batch[k] = min(7, case.seq_len - 1)
+        elif k == "tokens":
+            batch[k] = torch.randint(0, cfg.vocab, shape, generator=generator,
+                                     device=dev, dtype=i32)
+        elif k == "labels" and arch.family == "lm":
+            batch[k] = torch.roll(batch["tokens"], -1, 1)
+        elif dt == i32:
+            batch[k] = torch.full(shape, {"t": 500, "t_prev": 480}.get(
+                k, 0), dtype=i32, device=dev)
+        else:
+            batch[k] = torch.randn(shape, generator=generator,
+                                   device=dev).to(dt)
+    if case.kind == "decode":
+        cache = PM.init_params(generator, transformer_lm.init_cache_specs(
+            cfg, case.batch, case.seq_len), dev)
+        cache["slot_pos"].fill_(-1)
+        return params, cache, batch
+    opt = OPT.init_state(params) if case.kind == "train" else None
+    return _cell_args(case, params, stats, batch, opt)

@@ -1,5 +1,7 @@
 """Training launcher (port of ``repro.launch.train``):
-``python -m repro_torch.launch.train --arch llama3_2_1b ...``.
+``python -m repro_torch.launch.train --arch <id> ...`` for any of the ten
+``configs.ARCH_IDS`` (``--seq-len`` for the LMs, ``--img-res`` for the
+vision and diffusion models).
 
 Runs real training steps of the selected architecture: the step from
 ``build_cell``, a fresh ``materialize`` batch a step, the loop of

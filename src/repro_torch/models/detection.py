@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
 
 f32 = torch.float32
 
@@ -43,28 +44,20 @@ def init(generator: torch.Generator, cfg: TinyDetectorConfig, *,
          device=None) -> dict:
     """Random parameters by the reference's rule (``repro/models/params.py``
     ``fan_in``): weights ~ N(0, 1/cin), the input-channel count being the
-    reference's fan-in; biases zero.  Drawn on the CPU from ``generator``,
-    then moved to the resolved device."""
+    reference's fan-in, drawn in f32 and rounded to ``cfg.dtype``; biases
+    zero.  Drawn on the CPU from ``generator``, then moved to the resolved
+    device."""
     dev = resolve_device(device)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: only float32 is "
-                                  "ported")
+    dt = getattr(torch, cfg.dtype)
     params = {}
     for name, shape in param_specs(cfg).items():
         if len(shape) == 1:
-            params[name] = torch.zeros(shape, dtype=f32)
+            params[name] = torch.zeros(shape, dtype=dt)
         else:
-            params[name] = torch.randn(shape, generator=generator,
-                                       dtype=f32) / math.sqrt(shape[1])
+            params[name] = (torch.randn(shape, generator=generator,
+                                        dtype=f32) / math.sqrt(shape[1])
+                            ).to(dt)
     return {k: v.to(dev) for k, v in params.items()}
-
-
-def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
-    """XLA's padding="SAME": (low, high), the extra pixel going high (a
-    3x3 stride-2 conv on an even input pads (0, 1), not (1, 1))."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
 
 
 def layer_strides(cfg: TinyDetectorConfig) -> tuple[int, ...]:
@@ -77,17 +70,25 @@ def layer_strides(cfg: TinyDetectorConfig) -> tuple[int, ...]:
 def conv_layer(x, w, b, stride: int):
     """One conv layer on NCHW input: XLA "SAME" zero padding, a 3x3 conv
     at ``stride``, + bias, ReLU."""
-    ph = _same_pad(x.shape[2], w.shape[2], stride)
-    pw = _same_pad(x.shape[3], w.shape[3], stride)
+    ph = L.same_pad(x.shape[2], w.shape[2], stride)
+    pw = L.same_pad(x.shape[3], w.shape[3], stride)
     return F.relu(F.conv2d(F.pad(x, (*pw, *ph)), w, b, stride=stride))
 
 
 def forward(params: dict, cfg: TinyDetectorConfig, frames):
     """frames: (B, H, W) [0..255] -> (B, H/s, W/s, 5) raw head output.
 
-    Channels: [objectness logit, dy, dx, log h, log w].
+    Channels: [objectness logit, dy, dx, log h, log w].  The input is f32
+    whatever the config, so non-f32 weights raise ``TypeError``, as the
+    reference's convolution does on mixed dtypes.
     """
     x = (frames.to(f32) / 255.0 - 0.5)[:, None]
+    mixed = sorted({str(w.dtype).removeprefix("torch.")
+                    for w in params.values()
+                    if w.dim() == 4 and w.dtype != f32})
+    if mixed:
+        raise TypeError("the convolution requires arguments to have the "
+                        f"same dtypes, got float32, {', '.join(mixed)}")
     for i, stride in enumerate(layer_strides(cfg)):
         x = conv_layer(x, params[f"conv{i}"], params[f"bias{i}"], stride)
     x = F.conv2d(x, params["head"], params["head_b"])

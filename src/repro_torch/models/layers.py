@@ -1,11 +1,12 @@
-"""Decoder-LM layers (port of the LM part of ``repro.models.layers``:
-norms, RoPE, attention, SwiGLU and the mixture of experts).
+"""Shared layers of the model zoo (port of ``repro.models.layers``:
+norms, RoPE, attention, the SwiGLU and GELU MLPs and the mixture of
+experts), and the NHWC convolution and max pool with XLA's padding rule.
 
 Conventions, as in the reference:
 
-* activations (batch, seq, d); attention tensors q (B, Sq, H, D) and k/v
-  (B, Sk, Hk, D) with GQA groups G = H // Hk, query head h reading kv
-  head h // G;
+* activations (batch, seq, d) or NHWC for vision; attention tensors q
+  (B, Sq, H, D) and k/v (B, Sk, Hk, D) with GQA groups G = H // Hk, query
+  head h reading kv head h // G;
 * a matmul the reference takes with ``preferred_element_type=f32`` takes
   exact bf16 products and f32 sums here too (:func:`mm_f32`); softmax is
   in f32; outputs are cast back to the activation dtype.
@@ -15,8 +16,14 @@ Conventions, as in the reference:
 kernel is ``repro_torch.kernels.flash_attention``.  The reference's
 ``constrain``, ``scan_unroll`` and ``set_dryrun_unroll`` place XLA
 sharding constraints and unroll scans for its dry run: the port runs on
-one device, eagerly, and has no counterpart.  ``layer_norm`` and
-``gelu_mlp`` wait for the vision and diffusion zoo (ROADMAP.md queue 3).
+one device, eagerly, and has no counterpart.
+
+The reference convolves with ``lax.conv_general_dilated`` on NHWC
+activations and HWIO kernels; :func:`conv_nhwc` keeps both layouts at its
+interface and hands cuDNN the activations as a channels-last NCHW view
+(no copy).  ``padding="SAME"`` is XLA's rule (:func:`same_pad`), which
+puts the odd pixel after: a 3x3 stride-2 convolution of an even size
+pads (0, 1), where ``F.conv2d(padding=1)`` would pad (1, 1).
 
 The MoE layers (``router_topk``, ``moe_sorted_dispatch``,
 ``moe_gathered_experts``, ``moe_block``) are plain PyTorch, as the
@@ -95,6 +102,72 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-6):
+    """LayerNorm over the last dim in f32 (the population variance), cast
+    back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def take_clip(table, idx):
+    """``table.at[idx].get(mode="clip")``: rows of ``table`` at integer
+    ``idx``; a negative index counts from the end once (JAX normalises
+    indices before it clips), then every index is clamped into the
+    table."""
+    n = table.shape[0]
+    idx = idx.long()
+    return table[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
+# --------------------------------------------------------------------------
+# Convolutions (NHWC activations, HWIO kernels)
+# --------------------------------------------------------------------------
+def same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's padding="SAME" of one spatial dim: (low, high) with ``total =
+    max((out - 1) * stride + k - size, 0)`` for ``out = ceil(size /
+    stride)``, ``total // 2`` low and the rest high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
+    """x (B, H, W, C) padded by :func:`same_pad` in H and W."""
+    ph = same_pad(x.shape[1], kh, stride)
+    pw = same_pad(x.shape[2], kw, stride)
+    if not any(ph + pw):
+        return x
+    return F.pad(x, (0, 0, *pw, *ph), value=value)
+
+
+def conv_nhwc(x, w, stride: int = 1, padding: str = "SAME",
+              groups: int = 1):
+    """``lax.conv_general_dilated(x, w, (stride, stride), padding,
+    dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=
+    groups)``: x (B, H, W, Cin), w (kh, kw, Cin / groups, Cout) -> (B, H',
+    W', Cout) in x's dtype (w is cast to it).  ``padding`` is "SAME" or
+    "VALID"."""
+    if padding == "SAME":
+        x = _pad_same(x, w.shape[0], w.shape[1], stride)
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                 stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool_nhwc(x, k: int, stride: int):
+    """``lax.reduce_window(x, -inf, lax.max, (1, k, k, 1), (1, stride,
+    stride, 1), "SAME")`` on x (B, H, W, C): -inf padding by
+    :func:`same_pad`, then the pool without padding."""
+    x = _pad_same(x, k, k, stride, value=float("-inf"))
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride).permute(0, 2, 3, 1)
 
 
 # --------------------------------------------------------------------------
@@ -246,6 +319,16 @@ def swiglu(x, w1, w3, w2):
     g = mm_f32(x, w3)
     h = (F.silu(h) * g).to(x.dtype)
     return h @ w2  # the reference's bf16 result
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """x @ w1 (f32 result) + b1, GELU (jax.nn.gelu's default, the tanh
+    form), in x's dtype @ w2 (a result in x's dtype, as the reference's
+    einsum), + b2 in f32, cast back."""
+    h = mm_f32(x, w1)
+    h = F.gelu(h + b1.float(), approximate="tanh").to(x.dtype)
+    y = h @ w2
+    return (y.float() + b2.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -99,6 +99,23 @@ def tree_map(fn, tree, *rest):
             for k, v in tree.items()}
 
 
+def tree_unstack(tree) -> list:
+    """A nested dict of leaves stacked on dim 0 -> a list of nested dicts,
+    one an index of that dim (the reference scans such stacks).  One
+    ``unbind`` a leaf, so that autograd stacks the gradients of a leaf's
+    slices once."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    parts = {k: tree_unstack(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def tree_stack(trees: list):
+    """The inverse of :func:`tree_unstack`."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
 def param_count(specs_tree) -> int:
     return sum(math.prod(s.shape) for s in _leaves(specs_tree))
 

@@ -168,8 +168,7 @@ def _layer(params, i: int) -> dict:
 
 def _embed(params, cfg: LMConfig, tokens):
     """The reference's ``embed.at[tokens].get(mode="clip")``."""
-    return params["embed"][tokens.clamp(0, cfg.vocab - 1)] \
-        .to(cfg.torch_dtype)
+    return L.take_clip(params["embed"], tokens).to(cfg.torch_dtype)
 
 
 def _logits(params, cfg: LMConfig, x):

@@ -1,5 +1,6 @@
 """Carry weights across from the JAX reference: the TinyDetector's, the
-decoder LM's and the control plane's agents (optimiser state included)."""
+decoder LM's, the vision and diffusion zoo's and the control plane's
+agents (optimiser state included)."""
 from __future__ import annotations
 
 import numpy as np
@@ -58,6 +59,26 @@ def lm_params_from_jax(params: dict, device=None) -> dict:
             else torch.from_numpy(np.array(value, np.float32))
             .to(torch.bfloat16).to(dev)
             for name, value in params.items()}
+
+
+def zoo_params_from_jax(tree: dict, device=None) -> dict:
+    """The reference's vision or diffusion parameters (a nested dict of
+    numpy arrays: ResNet's ``{"params", "batch_stats"}``, ConvNeXt's, ViT's,
+    DiT's or EDSR's tree) -> the same nesting of tensors on the resolved
+    device, in the reference's layouts (HWIO kernels, stacked blocks) and
+    dtypes: a bf16 leaf (``ml_dtypes``' dtype, which ``torch.from_numpy``
+    rejects) passes through an exact f32 copy, the rest keep theirs."""
+    dev = resolve_device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if str(a.dtype) == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)) \
+                .to(torch.bfloat16).to(dev)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return {name: zoo_params_from_jax(value, dev) if isinstance(value, dict)
+            else one(value) for name, value in tree.items()}
 
 
 def _agent_from_jax(tree, dev):

@@ -99,13 +99,12 @@ def test_llama3_2_1b_parameter_count():
 
 
 def test_unported_archs_and_moe_raise():
-    """The vision and diffusion ids still raise (ROADMAP.md queue 3); the
-    MoE LMs build since their slice (tests/test_torch_moe.py holds them),
+    """The vision and diffusion ids resolve since their slice (tests/
+    test_torch_zoo_configs.py holds them) and an unknown id raises; the
+    MoE LMs build since theirs (tests/test_torch_moe.py holds them),
     and their train case raises from ``make_infer_fn`` as a dense one's."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("resnet_50")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("dit-xl2")
+    assert get_arch("resnet_50").cfg.param_count() == 25_557_032
+    assert get_arch("dit-xl2").cfg.param_count() == 679_406_992
     with pytest.raises(ValueError):
         get_arch("gpt5")
     assert get_arch("qwen2-moe-a2.7b").cfg.moe.n_experts == 60

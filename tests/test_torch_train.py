@@ -315,8 +315,10 @@ def test_grad_accum_and_remat_keep_values(lm_bf16):
                                m1["grad_norm"].item(), rtol=2 ** -8)
     assert arch.cfg.remat is False
     remat = dataclasses.replace(arch.cfg, remat=True)
-    l0, g0 = S._grads_of(arch.cfg, tp, _tb(batch))
-    l1, g1 = S._grads_of(remat, tp, _tb(batch))
+    l0, g0, _ = S._grads_of(lambda p, b: (M.loss_fn(p, arch.cfg, b), None),
+                            tp, _tb(batch))
+    l1, g1, _ = S._grads_of(lambda p, b: (M.loss_fn(p, remat, b), None),
+                            tp, _tb(batch))
     assert torch.equal(l0, l1)
     for a, b in zip(PM.tree_leaves(g0), PM.tree_leaves(g1)):
         assert torch.equal(a, b)
@@ -408,11 +410,17 @@ def test_materialize_train_and_unported_families():
                                                             True),
                          JShapeCase("t", "train", batch=2, seq_len=16))
     assert _spec_list(state) == _spec_list(ref[0])
+    # the vision and diffusion families are ported (tests/
+    # test_torch_zoo_configs.py holds their cells); a family whose model
+    # does not take the arch's config raises
     vision = dataclasses.replace(arch, family="vision")
     for call in (lambda: S.make_train_fn(vision),
                  lambda: S.build_cell(vision, case)):
-        with pytest.raises(NotImplementedError, match="queue 3"):
+        with pytest.raises(ValueError, match="no vision model takes"):
             call()
+    cell = S.build_cell(get_arch("resnet_50", True),
+                        ShapeCase("t", "train", batch=2, img_res=32))
+    assert set(cell.args[0]) == {"params", "opt", "batch_stats"}
 
 
 def test_pallas_attention_under_autograd_raises(lm_bf16):

@@ -15,6 +15,7 @@
                   expert-parallel moe_block alone; on several cards, meshes
                   over them)
     python3 chip_smoke.py --zoo       (phases 1 and 7c alone)
+    python3 chip_smoke.py --dryrun    (phases 1 and 7d alone)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -161,6 +162,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``chunked_attention``, its convolutions XLA's): every call checks that
    none launched.  ResNet-50 at a batch of 128 and one DiT-XL/2 step at
    gen_fast profiled in a process of their own;
+7d. dryrun: every cell of ``all_cells()`` through
+   ``repro_torch.launch.dryrun.run_cell`` on the single production mesh
+   of 256 meta devices (per-device argument bytes against the card's 80
+   GiB, FLOPs a step, the layout's and the walk's seconds); then the
+   llama3.2-1B train step at [train]'s cut, ResNet-50 serve_b128 and
+   DiT-XL/2 gen_fast materialised on the card and held to their layout
+   on a 1x1 meta mesh: the arguments' storage the layout's bytes exactly
+   (the allocator's growth within its rounding), the FLOPs counted over
+   the step on the card the meta count exactly, and the step's median
+   wall with its share of 989 TFLOP/s (and, for llama, [train]'s
+   6 N tokens share beside it);
 8. one JSON line listing the kernels; 9. the JSON result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -179,12 +191,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, f32
-# outside the tensor cores and bf16 on them (dense).  TF32 is off in the
-# port.
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and bf16
+# on the tensor cores (dense) from the port's launch.mesh, f32 outside the
+# tensor cores here.  TF32 is off in the port.
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_BF16 as BF16_TC_OPS_PER_S  # noqa: E402
 F32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12
 F32, BF16 = 4, 2
 
 H_HD, W_HD, T = 720, 1280, 30          # one second of 720p at 30 fps
@@ -4793,6 +4806,150 @@ def phase_train(quick) -> dict:
     return launches
 
 
+# [dryrun]: every cell of all_cells() laid out on the single production
+# mesh of meta devices (baseline rules); then three cells materialised on
+# the card and held to their layout on a 1x1 meta mesh: the llama3.2-1B
+# train step at [train]'s cut, ResNet-50 serve_b128, DiT-XL/2 gen_fast.
+# The arguments' storage equals the layout's bytes exactly, and the
+# allocator grows by that within its rounding: 512 bytes a block, and a
+# block of 1 MiB or more cut from a larger segment keeps a tail under
+# 1 MiB that is not worth splitting off.  The FLOPs counted over the step
+# on the card equal the meta count exactly
+CARD_BYTES = 80 * 2**30
+DRYRUN_HOLDS = (("llama3_2_1b", "train_4k", LLAMA_TRAIN),
+                ("resnet_50", "serve_b128", None),
+                ("dit_xl2", "gen_fast", None))
+DRYRUN_REPS = {"llama3_2_1b": 3, "resnet_50": 10, "dit_xl2": 5}
+DRYRUN_ALLOC_ROUND = 512
+DRYRUN_ALLOC_TAIL = 2**20
+
+
+def _dryrun_sweep() -> None:
+    """Every cell of ``all_cells()`` through ``dryrun.run_cell`` on the
+    single mesh, baseline; an error raises."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    n = 0
+    for arch_id, shape, _ in all_cells():
+        rec = D.run_cell(arch_id, shape, "single", "baseline", None)
+        if rec["status"] == "skipped":
+            print(f"[dryrun] {arch_id} {shape}: skipped ({rec['reason']})")
+            continue
+        n += 1
+        arg = rec["memory"]["argument_size_in_bytes"]
+        out = rec["memory"]["output_size_in_bytes"]
+        print(f"[dryrun] {arch_id} {shape}: {arg / 2**30:.3f} GiB of "
+              f"arguments a device ({arg / CARD_BYTES * 100:.2f} % of the "
+              f"card's 80 GiB), outputs {out / 2**30:.3f} GiB; "
+              f"{rec['cost_global']['flops']:.4g} FLOP a step "
+              f"({rec['cost']['flops']:.4g} a device of "
+              f"{rec['n_devices']}, {rec['cost_method']}); layout "
+              f"{rec['layout_s']:.2f} s, walk {rec['total_s']:.2f} s")
+    print(f"[dryrun] {n} cells laid out on the single mesh in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages under the tensors of ``tree``."""
+    import torch
+    from repro_torch.launch.dryrun import path_leaves
+    seen = {}
+    for _, t in path_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _dryrun_hold(arch_id: str, shape: str, cut, card: str) -> None:
+    """One cell materialised on the card against its layout on a 1x1 meta
+    mesh: the storage and the allocator's growth against the argument
+    bytes, the FLOPs counted over the step on the card against the meta
+    count (op by op where they differ), the step's median wall and the
+    share of 989 TFLOP/s it gives."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import make_axis_rules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    arch = get_arch(arch_id)
+    case = arch.shapes[shape]
+    if cut is not None:
+        case = dataclasses.replace(case, **cut)
+    tag = f"[dryrun] hold {arch_id} {shape}" + (
+        f" cut to {case.batch}x{case.seq_len}, grad_accum "
+        f"{case.grad_accum}" if cut else "")
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     devices=[torch.device("meta")])
+    rec = D.layout(arch, case, mesh, make_axis_rules(False))
+    want = rec["memory"]["argument_size_in_bytes"]
+    flops = rec["cost_global"]["flops"]
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    args = S.materialize(g, arch, case)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    stored = _storage_bytes(args)
+    sizes = [t.untyped_storage().nbytes() for _, t in D.path_leaves(args)
+             if isinstance(t, torch.Tensor)]
+    slack = DRYRUN_ALLOC_ROUND * len(sizes) + DRYRUN_ALLOC_TAIL * sum(
+        n >= DRYRUN_ALLOC_TAIL for n in sizes)
+    print(f"{tag}: arguments {stored:,} bytes of storage against the "
+          f"layout's {want:,}; the allocator grew {grown:,} bytes, "
+          f"{grown - want:,} over ({len(sizes)} tensors: at most "
+          f"{slack:,} of rounding)")
+    if stored != want or not 0 <= grown - want <= slack:
+        raise AssertionError(f"{tag}: the card's arguments depart from "
+                             f"the layout")
+
+    fn = S.build_cell(arch, case).fn
+    with D.flop_counter() as fc:
+        fn(*args)
+        torch.cuda.synchronize()
+    got = fc.get_total_flops()
+    by_op = {str(op): n for op, n in
+             fc.get_flop_counts().get("Global", {}).items()}
+    gaps = {op: (by_op.get(op, 0), rec["flops_by_op"].get(op, 0))
+            for op in set(by_op) | set(rec["flops_by_op"])
+            if by_op.get(op, 0) != rec["flops_by_op"].get(op, 0)}
+    print(f"{tag}: {got:.6g} FLOP counted on the card, {flops:.6g} on meta "
+          f"({rec['cost_method']}); by operator on the card "
+          f"{sorted(by_op.items())}"
+          + (f"; differing (card, meta): {gaps}" if gaps else ", equal"))
+    if got != flops:
+        raise AssertionError(f"{tag}: FLOPs on the card {got} != meta "
+                             f"{flops}: {gaps}")
+
+    ms = _zoo_ms(lambda: fn(*args), DRYRUN_REPS[arch_id])
+    share = flops / (ms / 1e3) / BF16_TC_OPS_PER_S
+    extra = ""
+    if arch.family == "lm":
+        six = 6 * arch.cfg.param_count() * case.batch * case.seq_len
+        extra = (f"; [train]'s 6 N tokens = {six:.4g} FLOP gives "
+                 f"{six / (ms / 1e3) / BF16_TC_OPS_PER_S * 100:.2f} % (the "
+                 f"meta count is {flops / six:.3f}x: the recompute and the "
+                 f"attention)")
+    print(f"{tag}: median step {ms:.2f} ms of {DRYRUN_REPS[arch_id]} after "
+          f"a warm-up, {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s = "
+          f"{share * 100:.2f} % of 989 TFLOP/s ({card}){extra}")
+    del args
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(card: str) -> None:
+    """[dryrun]: the sweep, then the three holds."""
+    t0 = time.perf_counter()
+    _dryrun_sweep()
+    for arch_id, shape, cut in DRYRUN_HOLDS:
+        _dryrun_hold(arch_id, shape, cut, card)
+    print(f"[dryrun] phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def _print_kernel(k: dict) -> None:
     """One [kernels] line: times, bound and host time of a kernel form."""
     lib = "" if k["library_ms"] is None \
@@ -4901,6 +5058,15 @@ def main(argv) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if argv[:1] == ["--dryrun"]:
+        # the dry-run tooling alone, with the card line
+        card = phase_card()
+        phase_dryrun(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if argv[:1] == ["--profile"]:
         if argv[1] == "lm":
             phase_profile_lm()
@@ -4962,6 +5128,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_zoo(card)
     profile_in_child("zoo")
+    torch.cuda.empty_cache()
+    phase_dryrun(card)
 
     # each kernel's launches from the first path that runs it (the bf16
     # qtransfer is on no path: the reference reaches it only from its

@@ -38,6 +38,13 @@ class ShardCtx:
         """Stream-axis data-parallel extent of the ambient mesh."""
         return self.axis_size(self.stream_axes)
 
+    @property
+    def runs_shards(self) -> bool:
+        """False on a mesh of ``meta`` devices (the dry run's), which lays
+        shapes out and runs no shard: code that would split its work over
+        the mesh takes its local path there."""
+        return self.mesh.devices.flat[0].type != "meta"
+
     def axis_size(self, axes: tuple[str, ...]) -> int:
         n = 1
         for a in axes:

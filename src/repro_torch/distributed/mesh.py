@@ -1,6 +1,6 @@
 """A mesh of devices in one process: the port's stand-in for
-``jax.sharding.Mesh``, ``NamedSharding``, ``jax.make_mesh`` and
-``jax.device_put`` onto a sharding.
+``jax.sharding.Mesh``, ``NamedSharding``, ``jax.make_mesh``,
+``jax.device_put`` onto a sharding and ``jax.ShapeDtypeStruct``.
 
 One process owns every device of the mesh, as under JAX's single
 controller: stream-sharded work copies each shard's slice of the stream
@@ -78,9 +78,55 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A placement: ``spec`` over ``mesh``'s axes."""
+    """A placement: ``spec`` over ``mesh``'s axes.  Raises ``ValueError``,
+    as ``jax.sharding.NamedSharding`` does, where the spec names an axis
+    the mesh lacks or one mesh axis for two dimensions."""
     mesh: Mesh
     spec: P
+
+    def __post_init__(self):
+        named = [a for entry in self.spec if entry is not None
+                 for a in (entry if isinstance(entry, tuple) else (entry,))]
+        missing = [a for a in named if a not in self.mesh.shape]
+        if missing:
+            raise ValueError(f"spec {self.spec} names axes {missing} not in "
+                             f"the mesh's {tuple(self.mesh.shape)}")
+        if len(set(named)) != len(named):
+            raise ValueError(f"spec {self.spec} maps a mesh axis to more "
+                             "than one dimension")
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The shape of the slice a mesh position holds: every position
+        holds one of that shape (:func:`_slices` raises where a split
+        dimension does not divide over its axes)."""
+        origin = (0,) * self.mesh.devices.ndim
+        return tuple(s.stop - s.start
+                     for s in _slices(self, tuple(shape), origin))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A tensor's shape, dtype and placement, with no storage: the port's
+    stand-in for ``jax.ShapeDtypeStruct`` (the dry run's arguments)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding | None = None
+
+    def shard_shape(self) -> tuple[int, ...]:
+        """The slice of the tensor one mesh position holds (the whole
+        shape without a sharding)."""
+        if self.sharding is None:
+            return tuple(self.shape)
+        return self.sharding.shard_shape(self.shape)
+
+    @property
+    def nbytes(self) -> int:
+        """The whole tensor's bytes."""
+        return math.prod(self.shape) * self.dtype.itemsize
+
+    def meta(self) -> torch.Tensor:
+        """A tensor of this shape and dtype on the ``meta`` device."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str], *,

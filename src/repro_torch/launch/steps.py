@@ -4,12 +4,15 @@ families without batch statistics; ResNet's step returns its new
 ``batch_stats``), LM prefill and decode, the vision forward and the
 diffusion DDIM step.
 
-``build_cell(arch, case)`` returns a :class:`Cell` whose ``fn`` is the
-step and whose ``args`` are tensors on the ``meta`` device with the
-reference's shapes and dtypes (nothing allocated).  ``materialize
+``build_cell(arch, case, mesh, rules)`` returns a :class:`Cell` whose
+``fn`` is the step, whose ``abstract`` arguments are
+``ShapeDtypeStruct``s with the reference's shapes, dtypes and, under a
+mesh, placements (``batch_specs`` gives the inputs' logical axes), and
+whose ``args`` are tensors on the ``meta`` device of those shapes and
+dtypes (nothing allocated): the dry run
+(:mod:`repro_torch.launch.dryrun`) walks ``fn(*args)``.  ``materialize
 (generator, arch, case)`` makes real parameters and inputs for it on the
-resolved device.  The reference's shardings and ``batch_specs`` feed its
-dry run (ROADMAP.md queue 5).
+resolved device.
 
 The backward is autograd through the plain PyTorch path: no kernel of
 the reference or the port has a backward (``attention_impl="pallas"``
@@ -24,12 +27,16 @@ import torch
 
 from repro_torch.configs import ArchSpec, ShapeCase
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import ShapeDtypeStruct
+from repro_torch.distributed.sharding import AxisRules, named_sharding
 from repro_torch.models import convnext, dit, resnet, transformer_lm, vit
+from repro_torch.models import layers as L
 from repro_torch.models import params as PM
 from repro_torch.train import optimizer as OPT
 
 i32 = torch.int32
 f32 = torch.float32
+bf16 = torch.bfloat16
 
 ADAMW = OPT.AdamWConfig()
 
@@ -50,6 +57,12 @@ class Cell:
     args: tuple
     donate: tuple[int, ...]
     kind: str
+    abstract: tuple = ()
+
+
+def _sds(shape, dtype, axes, mesh, rules) -> ShapeDtypeStruct:
+    sh = None if mesh is None else named_sharding(mesh, axes, rules, shape)
+    return ShapeDtypeStruct(tuple(shape), dtype, sh)
 
 
 def _model(arch: ArchSpec):
@@ -68,6 +81,45 @@ def _model(arch: ArchSpec):
 
 def _is_resnet(arch: ArchSpec) -> bool:
     return _model(arch) is resnet
+
+
+def _specs_tree(arch: ArchSpec) -> dict:
+    return _model(arch).param_specs(arch.cfg)
+
+
+def batch_specs(arch: ArchSpec, case: ShapeCase, mesh,
+                rules: AxisRules | None) -> dict:
+    """A cell's inputs as ``ShapeDtypeStruct``s, the reference's: the
+    batch dimension on the logical axis "batch", the rest replicated;
+    decode's ``pos`` a replicated 0-d int32."""
+    cfg = arch.cfg
+    B = case.batch
+
+    def sds(shape, dtype):
+        return _sds(shape, dtype, ("batch",) + (None,) * (len(shape) - 1),
+                    mesh, rules)
+
+    if arch.family == "lm":
+        if case.kind == "decode":
+            return {"tokens": sds((B, 1), i32),
+                    "pos": ShapeDtypeStruct((), i32)}
+        out = {"tokens": sds((B, case.seq_len), i32)}
+        if case.kind == "train":
+            out["labels"] = sds((B, case.seq_len), i32)
+        return out
+    if arch.family == "diffusion":
+        lr = cfg.latent_res(case.img_res)
+        lat = (B, lr, lr, cfg.latent_channels)
+        if case.kind == "train":
+            return {"latents": sds(lat, f32), "noise": sds(lat, f32),
+                    "t": sds((B,), i32), "labels": sds((B,), i32)}
+        return {"xt": sds(lat, f32), "t": sds((B,), i32),
+                "t_prev": sds((B,), i32), "y": sds((B,), i32)}
+    r = case.img_res
+    out = {"images": sds((B, r, r, 3), bf16)}
+    if case.kind == "train":
+        out["labels"] = sds((B,), i32)
+    return out
 
 
 def _grads_of(loss_fn, params, batch):
@@ -121,10 +173,16 @@ def make_train_fn(arch: ArchSpec, grad_accum: int = 1):
             gsum = PM.tree_map(lambda t: torch.zeros(
                 t.shape, dtype=acc_dt, device=t.device), params)
             lsum = 0.0
+
+            def split(x):
+                y = x.reshape(grad_accum, x.shape[0] // grad_accum,
+                              *x.shape[1:])
+                return L.constrain(y, None, "batch",
+                                   *([None] * (y.ndim - 2)))
+
+            mbs = {k: split(v) for k, v in batch.items()}
             for i in range(grad_accum):
-                mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: v[i] for k, v in mbs.items()}
                 loss_v, g, _ = _grads_of(loss, params, mb)
                 with torch.no_grad():
                     PM.tree_map(lambda a, x: a.add_(x.to(acc_dt)), gsum, g)
@@ -152,8 +210,15 @@ def make_infer_fn(arch: ArchSpec, case: ShapeCase):
             return lambda params, batch: M.prefill_step(params, cfg,
                                                         batch["tokens"])
         if case.kind == "decode":
-            return lambda params, cache, batch: M.decode_step(
-                params, cfg, cache, batch["tokens"], batch["pos"])
+            def decode(params, cache, batch):
+                pos = batch["pos"]
+                if isinstance(pos, torch.Tensor) and pos.is_meta:
+                    # a meta position has no value: the walk on meta
+                    # decodes at materialize's position
+                    pos = min(7, case.seq_len - 1)
+                return M.decode_step(params, cfg, cache, batch["tokens"],
+                                     pos)
+            return decode
         raise NotImplementedError(
             f"{case.kind}: an LM has a prefill or a decode step here; "
             "training goes through make_train_fn")
@@ -175,44 +240,19 @@ def make_infer_fn(arch: ArchSpec, case: ShapeCase):
     return torch.no_grad()(fn)
 
 
-def _meta(specs_tree):
-    """Meta tensors of every spec's shape and dtype."""
-    if isinstance(specs_tree, PM.ParamSpec):
-        return torch.empty(specs_tree.shape, dtype=specs_tree.dtype,
-                           device="meta")
-    return {k: _meta(v) for k, v in specs_tree.items()}
-
-
-def _inputs(arch: ArchSpec, case: ShapeCase) -> dict:
-    """A cell's batch: name -> (shape, dtype), as the reference's
-    ``batch_specs``."""
-    B = case.batch
-    if arch.family == "lm":
-        if case.kind == "decode":
-            return {"tokens": ((B, 1), i32), "pos": ((), i32)}
-        out = {"tokens": ((B, case.seq_len), i32)}
-        if case.kind == "train":
-            out["labels"] = out["tokens"]
-        return out
-    if arch.family == "diffusion":
-        lr = arch.cfg.latent_res(case.img_res)
-        lat = ((B, lr, lr, arch.cfg.latent_channels), f32)
-        if case.kind == "train":
-            return {"latents": lat, "noise": lat, "t": ((B,), i32),
-                    "labels": ((B,), i32)}
-        return {"xt": lat, "t": ((B,), i32), "t_prev": ((B,), i32),
-                "y": ((B,), i32)}
-    r = case.img_res
-    out = {"images": ((B, r, r, 3), torch.bfloat16)}
-    if case.kind == "train":
-        out["labels"] = ((B,), i32)
-    return out
+def _meta(tree):
+    """Meta tensors in place of every ``ShapeDtypeStruct`` of ``tree``."""
+    if isinstance(tree, ShapeDtypeStruct):
+        return tree.meta()
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return tuple(_meta(v) for v in tree)
 
 
 def _params_and_stats(arch: ArchSpec, make):
     """(params, ResNet's batch_stats or None), each spec tree through
     ``make``."""
-    specs = _model(arch).param_specs(arch.cfg)
+    specs = _specs_tree(arch)
     if _is_resnet(arch):
         return make(specs["params"]), make(specs["batch_stats"])
     return make(specs), None
@@ -232,26 +272,31 @@ def _cell_args(case: ShapeCase, params, stats, batch, opt) -> tuple:
     return params, batch
 
 
-def build_cell(arch: ArchSpec, case: ShapeCase) -> Cell:
-    """The step of (arch, case) and meta tensors for its arguments, as the
-    reference's ``build_cell`` without a mesh."""
+def build_cell(arch: ArchSpec, case: ShapeCase, mesh=None,
+               rules: AxisRules | None = None) -> Cell:
+    """The step of (arch, case), its arguments as ``ShapeDtypeStruct``s
+    placed on ``mesh`` by ``rules`` (unplaced without a mesh), and meta
+    tensors of their shapes and dtypes, as the reference's
+    ``build_cell``.  A decode step given a meta ``pos`` decodes at
+    :func:`materialize`'s position."""
     name = f"{arch.arch_id}:{case.name}"
-    params, stats = _params_and_stats(arch, _meta)
-    batch = {k: torch.empty(shape, dtype=dt, device="meta")
-             for k, (shape, dt) in _inputs(arch, case).items()}
+    params, stats = _params_and_stats(
+        arch, lambda specs: PM.abstract_params(specs, mesh, rules))
+    batch = batch_specs(arch, case, mesh, rules)
     if case.kind == "train":
-        return Cell(name, make_train_fn(arch, grad_accum=case.grad_accum),
-                    _cell_args(case, params, stats, batch,
-                               OPT.init_state(params)),
-                    donate=(0,), kind="train")
-    fn = make_infer_fn(arch, case)
-    if case.kind == "decode":
-        cache = _meta(transformer_lm.init_cache_specs(arch.cfg, case.batch,
-                                                      case.seq_len))
-        return Cell(name, fn, (params, cache, batch), donate=(1,),
-                    kind="decode")
-    return Cell(name, fn, _cell_args(case, params, stats, batch, None),
-                donate=(), kind=case.kind)
+        abstract = _cell_args(case, params, stats, batch,
+                              OPT.abstract_state(params))
+        fn, donate = make_train_fn(arch, grad_accum=case.grad_accum), (0,)
+    elif case.kind == "decode":
+        cache = PM.abstract_params(transformer_lm.init_cache_specs(
+            arch.cfg, case.batch, case.seq_len), mesh, rules)
+        abstract = (params, cache, batch)
+        fn, donate = make_infer_fn(arch, case), (1,)
+    else:
+        abstract = _cell_args(case, params, stats, batch, None)
+        fn, donate = make_infer_fn(arch, case), ()
+    return Cell(name, fn, _meta(abstract), donate=donate, kind=case.kind,
+                abstract=abstract)
 
 
 def materialize(generator: torch.Generator, arch: ArchSpec,
@@ -277,7 +322,8 @@ def materialize(generator: torch.Generator, arch: ArchSpec,
     params, stats = _params_and_stats(
         arch, lambda specs: PM.init_params(generator, specs, dev))
     batch = {}
-    for k, (shape, dt) in _inputs(arch, case).items():
+    for k, sds in batch_specs(arch, case, None, None).items():
+        shape, dt = sds.shape, sds.dtype
         if k == "pos":
             batch[k] = min(7, case.seq_len - 1)
         elif k == "tokens":

@@ -87,7 +87,7 @@ def _block(x, p):
     h = F.gelu(h + p["b1"].float(), approximate="tanh").to(x.dtype)
     h = h @ p["w2"]                         # the reference's x-dtype result
     h = (h.float() + p["b2"].float()) * p["gamma"].float()
-    return x + h.to(x.dtype)
+    return L.constrain(x + h.to(x.dtype), "batch", None, None, None)
 
 
 def forward(params, cfg: ConvNeXtConfig, images):

@@ -140,10 +140,12 @@ def _block(cfg: DiTConfig, p, x, c):
     # bf16 attention into the weights' dtype, the reference's einsum
     wo = p["wo"].reshape(-1, d)
     o = o.reshape(B, S, -1).to(torch.promote_types(o.dtype, wo.dtype)) @ wo
-    x = x + (g1[:, None] * o.float()).to(x.dtype)
+    x = L.constrain(x + (g1[:, None] * o.float()).to(x.dtype),
+                    "batch", None, None)
     h = _modulate(_plain_ln(x), sh2, sc2).to(x.dtype)
     h = L.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"])
-    return x + (g2[:, None] * h.float()).to(x.dtype)
+    return L.constrain(x + (g2[:, None] * h.float()).to(x.dtype),
+                       "batch", None, None)
 
 
 def patchify(latents, patch: int):

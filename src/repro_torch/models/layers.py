@@ -13,10 +13,14 @@ Conventions, as in the reference:
 
 ``chunked_attention`` and ``swa_attention`` are the reference's XLA path
 (``attention_impl="xla"``), written as plain PyTorch; the hand-written
-kernel is ``repro_torch.kernels.flash_attention``.  The reference's
-``constrain``, ``scan_unroll`` and ``set_dryrun_unroll`` place XLA
-sharding constraints and unroll scans for its dry run: the port runs on
-one device, eagerly, and has no counterpart.
+kernel is ``repro_torch.kernels.flash_attention``.  ``constrain`` marks
+an activation's logical axes at the reference's call sites: the port
+partitions no step, so it returns the tensor as it is, but under a
+``shard_ctx`` (the dry run's production meshes) it first places the
+axes on the mesh and raises where the reference's would.  The
+reference's ``scan_unroll`` and ``set_dryrun_unroll`` have no
+counterpart: the port loops over layers, chunks and blocks in Python, so
+there is no scan to unroll.
 
 The reference convolves with ``lax.conv_general_dilated`` on NHWC
 activations and HWIO kernels; :func:`conv_nhwc` keeps both layouts at its
@@ -46,6 +50,29 @@ import torch.nn.functional as F
 f32 = torch.float32
 bf16 = torch.bfloat16
 NEG_INF = -1e30
+
+# distributed.context's stack of shard contexts, bound at the first
+# ``constrain`` (importing it here would cycle through the distributed
+# package, which imports the detector and so this module)
+_CTX_STACK = None
+
+
+def constrain(x, *logical_axes):
+    """``x`` unchanged.  Under a ``shard_ctx`` the logical axes are first
+    placed on the ambient mesh (``named_sharding`` against ``x``'s shape,
+    dimensions that do not divide replicated), which raises where the
+    reference's ``with_sharding_constraint`` does: a rule naming an axis
+    the mesh lacks (``KeyError``), one mesh axis for two dimensions
+    (``ValueError``)."""
+    global _CTX_STACK
+    if _CTX_STACK is None:
+        from repro_torch.distributed.context import _CTX
+        _CTX_STACK = _CTX
+    if _CTX_STACK:
+        from repro_torch.distributed.sharding import named_sharding
+        ctx = _CTX_STACK[-1]
+        named_sharding(ctx.mesh, logical_axes, ctx.rules, x.shape)
+    return x
 
 
 class _MmF32(torch.autograd.Function):
@@ -226,9 +253,9 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dev = q.device
-    q = q.to(bf16).transpose(1, 2)                          # (B, H, Sq, D)
-    k = _repeat_kv(k, H).to(bf16).transpose(1, 2)           # (B, H, Sk, D)
-    v = _repeat_kv(v, H).to(bf16).transpose(1, 2)
+    q, k, v = (constrain(t, "batch", None, "tensor", None).transpose(1, 2)
+               for t in (q.to(bf16), _repeat_kv(k, H).to(bf16),
+                         _repeat_kv(v, H).to(bf16)))        # (B, H, S, D)
     if kv_positions is None:
         kv_positions = torch.arange(Sk, dtype=torch.int32, device=dev)
     q_pos = q_offset + torch.arange(Sq, dtype=torch.int32, device=dev)
@@ -252,10 +279,13 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + mm_f32(p.to(bf16), vb)
-        m = m_new
+        acc = constrain(acc * corr[..., None] + mm_f32(p.to(bf16), vb),
+                        "batch", "tensor", None, None)
+        m = constrain(m_new, "batch", "tensor", None)
+        l = constrain(l, "batch", "tensor", None)
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.transpose(1, 2).to(bf16)                     # (B, Sq, H, D)
+    return constrain(out.transpose(1, 2).to(bf16),
+                     "batch", None, "tensor", None)         # (B, Sq, H, D)
 
 
 def swa_attention(q, k, v, *, window: int, q_offset: int = 0,
@@ -265,9 +295,9 @@ def swa_attention(q, k, v, *, window: int, q_offset: int = 0,
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dev = q.device
-    q = q.to(bf16).transpose(1, 2)
-    k = _repeat_kv(k, H).to(bf16).transpose(1, 2)
-    v = _repeat_kv(v, H).to(bf16).transpose(1, 2)
+    q, k, v = (constrain(t, "batch", None, "tensor", None).transpose(1, 2)
+               for t in (q.to(bf16), _repeat_kv(k, H).to(bf16),
+                         _repeat_kv(v, H).to(bf16)))        # (B, H, S, D)
     qb = min(q_block, Sq)
     if Sq % qb:
         qb = Sq
@@ -286,8 +316,9 @@ def swa_attention(q, k, v, *, window: int, q_offset: int = 0,
             q_pos[:, None] - k_pos[None, :] < window)
         s = torch.where(mask, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        outs.append(mm_f32(p.to(bf16), vb).to(bf16))
-    return torch.cat(outs, dim=2).transpose(1, 2)           # (B, Sq, H, D)
+        outs.append(constrain(mm_f32(p.to(bf16), vb).to(bf16).transpose(
+            1, 2), "batch", None, "tensor", None))          # (B, qb, H, D)
+    return constrain(torch.cat(outs, dim=1), "batch", None, "tensor", None)
 
 
 def decode_attention(q, k_cache, v_cache, *, cache_positions, pos: int,
@@ -299,16 +330,19 @@ def decode_attention(q, k_cache, v_cache, *, cache_positions, pos: int,
     """
     B, _, H, D = q.shape
     Hk = k_cache.shape[2]
-    qg = q.reshape(B, Hk, H // Hk, D).to(bf16)              # (B, Hk, G, D)
+    qg = constrain(q.reshape(B, Hk, H // Hk, D).to(bf16),
+                   "batch", None, None, None)               # (B, Hk, G, D)
     kc = k_cache.to(bf16).permute(0, 2, 3, 1)               # (B, Hk, D, S)
-    s = mm_f32(qg, kc) * D ** -0.5                          # (B, Hk, G, S)
+    s = constrain(mm_f32(qg, kc) * D ** -0.5,
+                  "batch", None, None, "seq_kv")            # (B, Hk, G, S)
     valid = (cache_positions >= 0) & (cache_positions <= pos)
     if window is not None:
         valid = valid & (pos - cache_positions < window)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = mm_f32(p.to(bf16), v_cache.to(bf16).transpose(1, 2))  # (B, Hk, G, D)
-    return o.reshape(B, 1, H, D).to(q.dtype)
+    return constrain(o.reshape(B, 1, H, D).to(q.dtype),
+                     "batch", None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -492,6 +526,7 @@ def moe_block(x, w_router, w1, w3, w2, moe: MoEConfig):
     ctx = current_ctx()
     use_sm = (
         ctx is not None
+        and ctx.runs_shards
         and len(ctx.batch_axes) > 0
         and B % ctx.axis_size(ctx.batch_axes) == 0
         and ctx.axis_size(ctx.tensor_axes) > 1

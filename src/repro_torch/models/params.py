@@ -2,10 +2,11 @@
 
 Each model declares its parameters once, as a nested dict of
 :class:`ParamSpec` (shape + logical axes + initialiser); ``init_params``
-makes real tensors from it.  The reference's ``abstract_params`` feeds
-its sharded dry run only and has no counterpart here.  ``axes`` are kept
-as the reference declares them: the logical axis of each dimension, which
-``distributed.sharding.tree_shardings`` maps onto a mesh.
+makes real tensors from it, ``abstract_params`` storage-free
+``ShapeDtypeStruct``s with their placement for the dry run
+(:mod:`repro_torch.launch.dryrun`).  ``axes`` are kept as the reference
+declares them: the logical axis of each dimension, which
+``distributed.sharding.named_sharding`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +37,10 @@ class ParamSpec:
 
 def spec(shape: Sequence[int], axes: Sequence[str | None], **kw) -> ParamSpec:
     return ParamSpec(tuple(shape), tuple(axes), **kw)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
 
 
 def _leaves(tree):
@@ -80,6 +85,21 @@ def init_params(generator: torch.Generator, specs_tree, device) -> dict:
     if isinstance(specs_tree, ParamSpec):
         return _init_one(generator, specs_tree, device)
     return {k: init_params(generator, v, device)
+            for k, v in specs_tree.items()}
+
+
+def abstract_params(specs_tree, mesh=None, rules=None):
+    """A :class:`repro_torch.distributed.mesh.ShapeDtypeStruct` for every
+    spec, in its nesting, placed by ``named_sharding(mesh, spec.axes,
+    rules, spec.shape)`` when a mesh is given (a dimension that does not
+    divide over its mesh axes replicated, as the reference's)."""
+    from repro_torch.distributed.mesh import ShapeDtypeStruct
+    from repro_torch.distributed.sharding import named_sharding
+    if is_spec(specs_tree):
+        sh = None if mesh is None else named_sharding(
+            mesh, specs_tree.axes, rules, specs_tree.shape)
+        return ShapeDtypeStruct(specs_tree.shape, specs_tree.dtype, sh)
+    return {k: abstract_params(v, mesh, rules)
             for k, v in specs_tree.items()}
 
 

@@ -157,7 +157,7 @@ def _bottleneck(x, p, st, train: bool, momentum: float, stride: int = 1,
                                 p["bnp"], st["bnp"], train, momentum)
     else:
         sc = x
-    return torch.relu(h + sc), new_st
+    return L.constrain(torch.relu(h + sc), "batch", None, None, None), new_st
 
 
 def forward(variables, cfg: ResNetConfig, images, train: bool = False):

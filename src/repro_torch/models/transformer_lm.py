@@ -173,7 +173,8 @@ def _embed(params, cfg: LMConfig, tokens):
 
 def _logits(params, cfg: LMConfig, x):
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return L.mm_f32(x, params["embed"].t())
+    return L.constrain(L.mm_f32(x, params["embed"].t()),
+                       "batch", None, "tensor")
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +202,7 @@ def _qkv(cfg: LMConfig, p, x, positions):
         t = L.mm_f32(x, w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
         if cfg.qkv_bias:
             t = t + p[bias].float()
-        return t.to(x.dtype)
+        return L.constrain(t.to(x.dtype), "batch", None, "tensor", None)
 
     q, k, v = proj(p["wq"], "bq"), proj(p["wk"], "bk"), proj(p["wv"], "bv")
     rope = dict(fraction=cfg.rope_fraction, theta=cfg.rope_theta)
@@ -225,15 +226,15 @@ def _attn(cfg: LMConfig, p, x, positions):
     # with bf16 weights a bf16 result
     wo = p["wo"].reshape(-1, d)
     out = o.reshape(B, S, -1).to(torch.promote_types(o.dtype, wo.dtype)) @ wo
-    return out.to(x.dtype), (k, v)
+    return L.constrain(out.to(x.dtype), "batch", None, None), (k, v)
 
 
 def _block(cfg: LMConfig, p, x, positions):
     """One layer: (x after attention and FFN, (k, v), router loss)."""
     h, kv = _attn(cfg, p, L.rms_norm(x, p["ln1"], cfg.norm_eps), positions)
-    x = x + h
+    x = L.constrain(x + h, "batch", None, None)
     h, aux = _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + h, kv, aux
+    return L.constrain(x + h, "batch", None, None), kv, aux
 
 
 def _trunk(params, cfg: LMConfig, tokens, collect_cache: bool):
@@ -243,7 +244,7 @@ def _trunk(params, cfg: LMConfig, tokens, collect_cache: bool):
     backward and runs again there; the values are the same."""
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = _embed(params, cfg, tokens)
+    x = L.constrain(_embed(params, cfg, tokens), "batch", None, None)
     remat = cfg.remat and torch.is_grad_enabled()
     # one unbind a tensor: its backward stacks the layers' gradients once
     names = list(params["blocks"])

@@ -92,7 +92,8 @@ def _block(cfg: ViTConfig, p, x):
 
     def proj(name):
         t = L.mm_f32(h, p["w" + name].reshape(d, -1)).reshape(B, S, H, -1)
-        return (t + p["b" + name].float()).to(x.dtype)
+        return L.constrain((t + p["b" + name].float()).to(x.dtype),
+                           "batch", None, "tensor", None)
 
     h = L.layer_norm(x, p["ln1_w"], p["ln1_b"])
     q, k, v = proj("q"), proj("k"), proj("v")
@@ -100,9 +101,11 @@ def _block(cfg: ViTConfig, p, x):
     # bf16 attention into the weights' dtype, the reference's einsum
     wo = p["wo"].reshape(-1, d)
     h = o.reshape(B, S, -1).to(torch.promote_types(o.dtype, wo.dtype)) @ wo
-    x = x + (h.float() + p["bo"].float()).to(x.dtype)
+    x = L.constrain(x + (h.float() + p["bo"].float()).to(x.dtype),
+                    "batch", None, None)
     h = L.layer_norm(x, p["ln2_w"], p["ln2_b"])
-    return x + L.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"])
+    return L.constrain(x + L.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"]),
+                       "batch", None, None)
 
 
 def _tokens(params, cfg: ViTConfig, images, patch_bias: bool):

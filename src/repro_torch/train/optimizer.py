@@ -42,6 +42,20 @@ def init_state(params, lead: tuple = ()) -> dict:
             "step": torch.zeros(lead, dtype=torch.int32, device=device)}
 
 
+def abstract_state(param_sds) -> dict:
+    """The state of :func:`init_state` as storage-free
+    ``ShapeDtypeStruct``s (the dry run): f32 moments placed as their
+    parameters, and an int32 step."""
+    from repro_torch.distributed.mesh import ShapeDtypeStruct
+
+    def f32_like(p):
+        return ShapeDtypeStruct(p.shape, f32, p.sharding)
+
+    return {"mu": tree_map(f32_like, param_sds),
+            "nu": tree_map(f32_like, param_sds),
+            "step": ShapeDtypeStruct((), torch.int32)}
+
+
 def lr_schedule(cfg: AdamWConfig, step):
     """Linear warm-up, then a cosine decay to ``min_lr_ratio``."""
     step = step.to(f32)

@@ -1,29 +1,46 @@
-"""The port's blockdct, qtransfer and seq_sum forms from two trees, timed
-in turns on one card.
+"""The port's blockdct, qtransfer and seq_sum forms, or llama3.2-1B's
+decode step, from two trees, timed in turns on one card.
 
-    python3 tools/transform_ab.py OTHER_ROOT     (from the repo root)
+    python3 tools/transform_ab.py OTHER_ROOT [--decode] [--pairs N]
+        (from the repo root)
 
 OTHER_ROOT is the root of another checkout of the repo, for instance the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
-The two trees' ports run in turns (other, this, this, other), each in a
-process of its own, since two packages of one name cannot share one.
-Each process builds its tree's kernels and times every form below at the
-round trip's shapes on the same seeded inputs, three ways: the device
-time a call, from a CUDA graph of 20 calls (or one a copy, where there
-are more) replayed 10 times (median), so that the host does not pace the
-launches; CUDA events over 5 back-to-back calls (median of 20), which
-the host may pace; and the host's time a call without waiting for the
-card (median of 200).  "kernel" forms time the kernel's wrapper alone, on
-the layout that tree's kernel takes (tiles in block order before the
-raster entries existed); "codec" forms time the codec entry the round
-trip calls, with whatever block-order copies that tree makes around the
-kernel.  The seq_sum forms sum the paths' grids of 8x8-block bits, one
-copy (read from the L2 after the first call) and, "cold", copies over
-128 MiB read in turns, each call's from HBM.  Prints one line a form, in
-microseconds.
+The two trees' ports run in turns, each in a process of its own, since
+two packages of one name cannot share one: N pairs (default 2), the
+first (other, this), the next (this, other), and so on.  Prints, for each
+form and measure, each tree's median over its runs with their spread and
+every run's value.
+
+The kernel forms (the default): each process builds its tree's kernels
+and times every form below at the round trip's shapes on the same seeded
+inputs, three ways, in microseconds: the device time a call, from a CUDA
+graph of 20 calls (or one a copy, where there are more) replayed 10
+times (median), so that the host does not pace the launches; CUDA events
+over 5 back-to-back calls (median of 20), which the host may pace; and
+the host's time a call without waiting for the card (median of 200).
+"kernel" forms time the kernel's wrapper alone, on the layout that
+tree's kernel takes (tiles in block order before the raster entries
+existed); "codec" forms time the codec entry the round trip calls, with
+whatever block-order copies that tree makes around the kernel.  The
+seq_sum forms sum the paths' grids of 8x8-block bits, one copy (read from
+the L2 after the first call) and, "cold", copies over 128 MiB read in
+turns, each call's from HBM.
+
+``--decode``: each process draws llama3.2-1B at full width and depth
+from a seed (``launch.steps.materialize``) with a cache of 4128 slots for
+2 requests, as ``chip_smoke.py``'s [lm] decodes, and runs 3 + 32 greedy
+decode steps through ``make_infer_fn``, in milliseconds the median of
+the last 32: CUDA events around the step, the next token's argmax after
+it, as [lm] times it (the decode is host-bound, so this is the host's
+time a step), and the host's clock to a synchronise.  In a tree whose
+``models/layers`` has ``constrain``, each of those steps is followed by
+one with an identity in its place, timed alike: the activation marks'
+cost, free of the spread between processes.
 """
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import os
@@ -38,6 +55,9 @@ T, HD, LR = 30, (720, 1280), (352, 640)
 # the anchors' of one stream and of nine
 SEQ_SUM_GRIDS = ((270, 44, 80), (30, 90, 160), (270, 90, 160))
 COLD_BYTES = 128 << 20
+# the decode form: [lm]'s requests, cache slots and first position
+DECODE_BATCH, DECODE_SLOTS, DECODE_POS = 2, 4128, 4096
+DECODE_WARMUP, DECODE_STEPS = 3, 32
 
 
 def graph_us(fn, n: int = 20, reps: int = 10) -> float:
@@ -189,43 +209,113 @@ def forms() -> dict:
             **seq_sum_forms(g)}
 
 
-def child() -> None:
+def decode_ms() -> dict:
+    """llama3.2-1B's decode step (the module docstring), in ms."""
+    import torch
+    from repro_torch.configs import ShapeCase, get_arch
+    from repro_torch.launch import steps as S
+    arch = get_arch("llama3_2_1b")
+    case = ShapeCase("decode", "decode", batch=DECODE_BATCH,
+                     seq_len=DECODE_SLOTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    from repro_torch.models import layers
+    params, cache, batch = S.materialize(g, arch, case)
+    decode = S.make_infer_fn(arch, case)
+    tok = batch["tokens"]
+    # a tree with layers.constrain also takes, in alternate steps, the
+    # step with an identity in its place: the two in one process
+    constrain = getattr(layers, "constrain", None)
+    forms = ("",) if constrain is None else ("", ", constrain an identity")
+    times = {f: ([], []) for f in forms}
+    pos = DECODE_POS
+    with torch.no_grad():
+        for i in range(DECODE_WARMUP + DECODE_STEPS):
+            for form in forms:
+                layers.constrain = constrain if not form else \
+                    (lambda x, *axes: x)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                logits, cache = decode(params, cache,
+                                       {"tokens": tok, "pos": pos})
+                end.record()
+                tok = logits[:, -1].argmax(-1, keepdim=True).int()
+                torch.cuda.synchronize()
+                pos += 1
+                if i >= DECODE_WARMUP:
+                    times[form][0].append(start.elapsed_time(end))
+                    times[form][1].append((time.perf_counter() - t0) * 1e3)
+    layers.constrain = constrain
+    name = (f"llama3.2-1B decode {DECODE_BATCH}x{DECODE_SLOTS}, median of "
+            f"{DECODE_STEPS}")
+    out = {}
+    for form, (events, walls) in times.items():
+        out[f"events ms{form}"] = statistics.median(events)
+        out[f"host to a synchronise ms{form}"] = statistics.median(walls)
+    return {name: out}
+
+
+def child(decode: bool) -> None:
+    if decode:
+        print(json.dumps(decode_ms()))
+        return
     from repro_torch.kernels import build
     build.build(("blockdct", "qtransfer", "seq_sum"))
-    print(json.dumps({name: [graph_us(fn, n), events_us(fn), host_us(fn)]
+    print(json.dumps({name: {"device (CUDA graph) us": graph_us(fn, n),
+                             "events us": events_us(fn),
+                             "host us": host_us(fn)}
                       for name, (fn, n) in forms().items()}))
 
 
-def run(root: str) -> dict:
+def run(root: str, decode: bool) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--child"], cwd=root, env=env, capture_output=True,
-                         text=True, timeout=600)
+    cmd = [sys.executable, os.path.abspath(__file__), "--child"]
+    res = subprocess.run(cmd + (["--decode"] if decode else []), cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"{root}: {res.stderr}")
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def main(argv) -> int:
-    if argv == ["--child"]:
-        child()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other", nargs="?")
+    ap.add_argument("--child", action="store_true")
+    ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--pairs", type=int, default=2)
+    args = ap.parse_args(argv)
+    if args.child:
+        child(args.decode)
         return 0
-    other = os.path.abspath(argv[0])
+    other = os.path.abspath(args.other)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    print(f"{card}; us a call, turns: other, this, this, other (other = "
-          f"{argv[0]})")
-    runs = [run(other), run(ROOT), run(ROOT), run(other)]
-    for name in runs[1]:
-        if name not in runs[0]:
+    order = [("other", other), ("this", ROOT)]
+    turns = [t for i in range(args.pairs) for t in order[::1 - 2 * (i % 2)]]
+    print(f"{card}; {args.pairs} pairs in turns "
+          f"{', '.join(label for label, _ in turns)} (other = {args.other})",
+          flush=True)
+    runs = {"other": [], "this": []}
+    for label, root in turns:
+        runs[label].append(run(root, args.decode))
+    for name in runs["this"][0]:
+        if name not in runs["other"][0]:
             print(f"{name}: not in the other tree")
             continue
-        for i, what in enumerate(("device (CUDA graph)", "events", "host")):
-            o = [runs[0][name][i], runs[3][name][i]]
-            t = [runs[1][name][i], runs[2][name][i]]
-            print(f"{name} {what}: other {o[0]:.2f} / {o[1]:.2f}, this "
-                  f"{t[0]:.2f} / {t[1]:.2f} us")
+        for what in runs["this"][0][name]:
+            cols = []
+            for label in ("other", "this"):
+                if what not in runs[label][0][name]:
+                    continue
+                v = [r[name][what] for r in runs[label]]
+                cols.append(f"{label} median {statistics.median(v):.2f} "
+                            f"({min(v):.2f}-{max(v):.2f}: "
+                            f"{' '.join(f'{x:.2f}' for x in v)})")
+            print(f"{name} {what}: {'; '.join(cols)}")
     return 0
 
 

@@ -1,0 +1,11 @@
+"""roofline_pct.blockdct: the blockdct task's bound over the traced chunks
+(counts.py: operations at 67 TFLOP/s or bytes at 3.35 TB/s, whichever is
+longer), as a share of the device time of its kernels:
+forward_quant_kernel, inverse_kernel."""
+from harness.readers import roofline_pct
+
+KERNELS = ("forward_quant_kernel", "inverse_kernel")
+
+
+def read(ctx):
+    return roofline_pct(ctx, "blockdct", *KERNELS)

@@ -25,6 +25,14 @@ def classify_frames(frame_diff, residual_mag, tr1, tr2):
     does, every lane at once: T is a chunk's frame count, and it costs one
     copy to the host.
     """
+    dev = frame_diff.device
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in _classify_host(frame_diff, residual_mag, tr1, tr2))
+
+
+def _classify_host(frame_diff, residual_mag, tr1, tr2):
+    """:func:`classify_frames` with its results left on the host: (types,
+    X, R) numpy arrays."""
     fd = frame_diff.detach().to("cpu", torch.float32).numpy()
     rm = residual_mag.detach().to("cpu", torch.float32).numpy()
     lead, T = fd.shape[:-1], fd.shape[-1]
@@ -48,9 +56,7 @@ def classify_frames(frame_diff, residual_mag, tr1, tr2):
         inferred = types[..., i] != 3
         acc_x = np.where(inferred, np.float32(0.0), X[..., i])
         acc_r = np.where(inferred, np.float32(0.0), R[..., i])
-    dev = frame_diff.device
-    return (torch.from_numpy(types).to(dev), torch.from_numpy(X).to(dev),
-            torch.from_numpy(R).to(dev))
+    return types, X, R
 
 
 def anchor_fraction(types):

@@ -23,13 +23,15 @@ The anchor quality is pinned to ``cfg.anchor_quality``, or, with
 ``anchor_search=True``, chosen a frame from ``ANCHOR_QUALITY_LADDER``: the
 highest rung whose bits fit the anchor's even share of the chunk's spare
 bandwidth (``bw_kbps * 1000 * T/fps`` minus the video bits).  The fused
-search charges every rung's bits with one blockdct launch a rung over all
-frames and reconstructs each frame once, at its chosen rung.
+search charges every rung's bits with one blockdct launch a rung over the
+chunk's anchors and reconstructs each anchor once, at its chosen rung.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.codec import blockdct as B
@@ -40,11 +42,11 @@ from repro_torch.codec.rate_model import (QUALITY_LADDER, downscale,
                                           ladder_lr_shape, lr_shape_for_scale)
 from repro_torch.codec.video_codec import (VideoCodecConfig, _encode_chunk,
                                            encode_chunk)
-from repro_torch.core.classification import classify_frames
+from repro_torch.core.classification import _classify_host, classify_frames
 from repro_torch.core.hybrid_decoder import (PipelineCosts, _execute_chunk,
                                              decode_execute_chunk)
 from repro_torch.core.roi import RoiConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models.detection import TinyDetectorConfig
 
 f32 = torch.float32
@@ -96,35 +98,51 @@ def _lanes(dev, S: int, **scalars) -> dict:
             .expand(S) for k, v in scalars.items()}
 
 
+# frames of the anchor stage: "given", every frame it was handed, and
+# "encoded", the frames it encoded (Eq. 3's anchors)
+ANCHOR_FRAMES: collections.Counter = collections.Counter()
+
+
 def _anchors(raw, types, video_bits, bw_kbps, cfg: RoundtripConfig):
-    """The JPEG anchors of S streams' chunks, raw (S, T, H, W): every frame
-    encoded, masked to the type-1 frames.  Returns (anchor_hd, anchor_bits
-    (S,), anchor_q (S, T))."""
+    """The JPEG anchors of S streams' chunks, raw (S, T, H, W): only the
+    type-1 frames of ``types`` (Eq. 3's types on the host, numpy (S, T))
+    are encoded, and their results scattered into zeros, which are exact
+    no-ops in every sum.  Returns (anchor_hd, anchor_bits (S,), anchor_q
+    (S, T))."""
     S, T = types.shape
-    is1 = types == 1
+    dev = raw.device
+    ids = np.flatnonzero(types == 1)
+    ANCHOR_FRAMES["given"] += S * T
+    ANCHOR_FRAMES["encoded"] += len(ids)
+    idx = host_to_device(ids, dev)
+    flat = raw.flatten(0, 1)
+    sel = flat.index_select(0, idx)
     if cfg.anchor_search:
-        # each frame's bits at every rung, its even share of the spare
-        # bandwidth, the highest rung that fits; then one encode of each
-        # frame at its own rung's table
-        bits = ladder_bits(raw)                              # (S, T, Q)
-        n_anchors = B.seq_sum(torch.where(is1, 1.0, 0.0), 1)
+        # each anchor's bits at every rung, its even share of its stream's
+        # spare bandwidth, the highest rung that fits; then one encode of
+        # each anchor at its own rung's table
+        bits = ladder_bits(sel)                              # (n1, Q)
+        is1 = host_to_device((types == 1).astype(np.float32), dev)
+        n_anchors = B.seq_sum(is1, 1)
         per_anchor = anchor_budget_bits(bw_kbps, video_bits, n_anchors, T,
                                         cfg.fps)
-        rung = budget_rung(bits, per_anchor[:, None])        # (S, T)
-        qs = torch.tensor(ANCHOR_QUALITY_LADDER, dtype=f32, device=raw.device)
-        tables = B.quant_table(ANCHOR_QUALITY_LADDER, raw.device)[rung]
-        _, jrec = B.dct_quantize_raster(raw - 128.0, tables)
+        rung = budget_rung(bits, per_anchor[idx // T])       # (n1,)
+        qs = torch.tensor(ANCHOR_QUALITY_LADDER, dtype=f32, device=dev)
+        tables = B.quant_table(ANCHOR_QUALITY_LADDER, dev)[rung]
+        _, jrec = B.dct_quantize_raster(sel - 128.0, tables)
         jrec = (jrec + 128.0).clamp(0.0, 255.0)
         jbits = bits.gather(-1, rung[..., None])[..., 0]
         frame_q = qs[rung]
     else:
-        # every frame at the pinned quality, in one blockdct launch
-        jrec, jbits = jpeg_encode_decode(raw, cfg.anchor_quality)
-        frame_q = torch.full((S, T), cfg.anchor_quality, dtype=f32,
-                             device=raw.device)
-    anchor_hd = torch.where(is1[..., None, None], jrec, 0.0)
-    anchor_bits = B.seq_sum(torch.where(is1, jbits, 0.0), 1)
-    return anchor_hd, anchor_bits, torch.where(is1, frame_q, 0.0)
+        # the anchors at the pinned quality, in one blockdct launch
+        jrec, jbits = jpeg_encode_decode(sel, cfg.anchor_quality)
+        frame_q = torch.full((len(ids),), cfg.anchor_quality, dtype=f32,
+                             device=dev)
+    jrec = torch.zeros_like(flat).index_copy_(0, idx, jrec)
+    jbits = flat.new_zeros(S * T).index_copy_(0, idx, jbits)
+    frame_q = flat.new_zeros(S * T).index_copy_(0, idx, frame_q)
+    anchor_bits = B.seq_sum(jbits.reshape(S, T), 1)
+    return jrec.reshape(raw.shape), anchor_bits, frame_q.reshape(S, T)
 
 
 def _roundtrip_execute(raw, enc, lr_extent, gt_boxes, gt_valid, params,
@@ -132,10 +150,11 @@ def _roundtrip_execute(raw, enc, lr_extent, gt_boxes, gt_valid, params,
     """Post-encode half for S streams, every input with a leading stream
     axis: classification, anchors, rate model, 3-pipeline execution."""
     video_bits = B.seq_sum(enc.bits, 1)
-    types, _, _ = classify_frames(enc.frame_diff / 255.0,
-                                  enc.residual_mag / 255.0, lanes["tr1"],
-                                  lanes["tr2"])
-    anchor_hd, anchor_bits, anchor_q = _anchors(raw, types, video_bits,
+    types_host = _classify_host(enc.frame_diff / 255.0,
+                                enc.residual_mag / 255.0, lanes["tr1"],
+                                lanes["tr2"])[0]
+    types = host_to_device(types_host, raw.device)
+    anchor_hd, anchor_bits, anchor_q = _anchors(raw, types_host, video_bits,
                                                 lanes["bw_kbps"], cfg)
     total_bits = video_bits + anchor_bits
     out = _execute_chunk(enc, types, anchor_hd, gt_boxes, gt_valid, params,

@@ -64,6 +64,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running integration test (still tier-1; "
         "deselect with -m 'not slow' for a quick pass)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; its fixture skips without one")
 
 
 @pytest.fixture(scope="session")

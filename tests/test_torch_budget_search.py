@@ -23,6 +23,7 @@ from repro.sim.video_source import StreamConfig, generate_chunk
 from repro_torch.codec import image_codec as I
 from repro_torch.core import roundtrip as RT
 from repro_torch.models.weights import detector_params_from_jax
+from test_torch_anchor_stage_card import masked_anchors, spread_bandwidths
 
 H, W, T = 64, 96, 4
 QS = np.asarray(I.ANCHOR_QUALITY_LADDER, np.float32)
@@ -241,3 +242,37 @@ def test_ladder_batched_search_lanes_equal_single_stream(streams, params):
                                  device="cpu")
         for k in one:
             assert torch.equal(out[k][s], one[k]), f"lane {s}: {k}"
+
+
+# ------------------------------------------------ the anchor stage's gather
+# Eq. 3's types of three streams: one anchor a stream, mixed, every frame
+TYPE_CASES = {
+    "i_frame_only": [[1, 3, 3, 2], [1, 2, 3, 3], [1, 3, 2, 3]],
+    "mixed": [[1, 3, 1, 2], [1, 1, 3, 1], [1, 2, 3, 3]],
+    "every_frame": [[1] * T] * 3,
+}
+
+
+@pytest.mark.parametrize("search", [False, True], ids=["pinned", "search"])
+@pytest.mark.parametrize("case", list(TYPE_CASES))
+def test_anchor_stage_encodes_only_anchors_bit_for_bit(streams, case,
+                                                       search):
+    """``_anchors`` encodes Eq. 3's anchors alone and scatters them into
+    zeros: bit for bit the masked every-frame form, the counter showing
+    the frames given and encoded."""
+    raw = torch.as_tensor(streams[0], dtype=torch.float32)
+    types_host = np.asarray(TYPE_CASES[case], np.int32)
+    types = torch.from_numpy(types_host)
+    video_bits = torch.tensor([900.0, 2500.0, 400.0])
+    cfg = RT.RoundtripConfig(anchor_search=search)
+    bw = spread_bandwidths(raw, types_host, video_bits)
+    want = masked_anchors(raw, types, video_bits, bw, cfg)
+    RT.ANCHOR_FRAMES.clear()
+    got = RT._anchors(raw, types_host, video_bits, bw, cfg)
+    for name, a, b in zip(("anchor_hd", "anchor_bits", "anchor_q"), got,
+                          want):
+        assert torch.equal(a, b), name
+    assert RT.ANCHOR_FRAMES == {"given": raw.shape[0] * T,
+                                "encoded": int((types_host == 1).sum())}
+    if search:
+        assert len(torch.unique(got[2][types == 1])) > 1
